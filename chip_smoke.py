@@ -10,33 +10,43 @@ exits non-zero and prints no result.  Phases, one line each; any failure
 raises and ends the run with a non-zero exit:
 
 1. device — the card's name and power limit as ``nvidia-smi`` reports them;
-2. build — every CUDA kernel of the main path, compiled from
-   ``fedml_tpu_torch/csrc`` (one ``nvcc`` per source, started together);
+2. build — every CUDA kernel source of the paths, compiled from
+   ``fedml_tpu_torch/csrc`` (one ``nvcc`` per source, started together),
+   with ptxas' registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card, on
-   the unit-test cases and at the main path's shape, with the tolerance;
-4. timing — at the main path's shape, each kernel, its plain version and
-   one PyTorch library call, beside the least time the card could take;
+   the unit-test cases and at the main paths' shapes, with the tolerance:
+   the weighted reduce (also on a column range), the four channels of the
+   fused epilogue, and the async ``fold_buffer`` (its ``none`` channel);
+4. timing — at the rounds' shape, each kernel, its plain version and, where
+   one exists, one PyTorch library call, beside the least time the card
+   could take;
 5. parity — one round of the port on the card against the same round on
-   the CPU (the CPU path is held to the JAX package by the tests);
-6. main path — the north-star config of ``bench.py`` (Parrot FedAvg,
-   ResNet-56 at full width in bfloat16, 100 clients split Dirichlet(0.5),
-   10 per round in 10 size strata capped at 0.8, batch 32, lr 0.05) for 3
-   rounds on the 50k/10k hard synthetic CIFAR-10 stand-in, through
-   ``init → device → data → model → FedMLRunner(...).run()``, with the
-   kernels' launch counts set to 0 just before and read just after;
-7. trace — one client of the main path's round under ``torch.profiler``:
+   the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
+   and FedOpt with server adam, sgd with momentum 0.9 and sgd without;
+6. main path, FedAvg — the north-star config of ``bench.py`` (Parrot
+   FedAvg, ResNet-56 at full width in bfloat16, 100 clients split
+   Dirichlet(0.5), 10 per round in 10 size strata capped at 0.8, batch 32,
+   lr 0.05) for 3 rounds on the 50k/10k hard synthetic CIFAR-10 stand-in,
+   through ``init → device → data → model → FedMLRunner(...).run()``;
+7. main path, FedOpt — the same config with ``federated_optimizer:
+   FedOpt`` (server adam at ``server_lr`` 1e-3, the JAX defaults);
+8. trace — one client of the FedOpt path's round under ``torch.profiler``:
    the device's busy share of its wall time, the kernels launched per
    batch and the ones that take the device time.
 
-Then one JSON line of per-kernel numbers and, last, the result line
-``{"ok": true, "device": {...}}``.
+Every path (the fold in phase 3, the card rounds of phase 5, phases 6 and
+7) is driven with the kernels' launch counts set to 0 just before it and
+read just after.  Then one JSON line of per-kernel numbers and, last, the
+result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -46,6 +56,7 @@ import torch
 
 import fedml_tpu_torch
 from fedml_tpu_torch import FedMLRunner
+from fedml_tpu_torch.ml.aggregator.agg_operator import fold_buffer
 from fedml_tpu_torch.ml.engine.model_bundle import FlatVariables, ModelBundle
 from fedml_tpu_torch.models.cv import CIFARResNet
 from fedml_tpu_torch.ops import cuda_build, epilogue
@@ -53,6 +64,7 @@ from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
+PHASES = 8
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -64,21 +76,49 @@ MAIN_CONFIG = dict(
     hetero_bucket_cap=0.8, data_scale=10, synthetic_hard=True,
     random_seed=0,
     data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke"))
+#: FedOpt with the JAX package's server defaults (arguments.py: adam, 1e-3)
+FEDOPT = dict(federated_optimizer="FedOpt", server_optimizer="adam",
+              server_lr=1e-3)
 
-#: the main path's kernels: (name, source, the TPU kernel it replaces)
-KERNELS = [("weighted_reduce", "fedml_tpu_torch/csrc/weighted_reduce.cu",
-            "fedml_tpu/ops/epilogue.py:153")]
-F32_TOL = (2e-6, 2e-6)          # (atol, rtol): float32 sums in another order
+EPI = "fedml_tpu_torch/csrc/fused_epilogue.cu"
+#: the paths' kernels: (name, source, the TPU kernel it replaces, channel)
+KERNELS = [
+    ("weighted_reduce", "fedml_tpu_torch/csrc/weighted_reduce.cu",
+     "fedml_tpu/ops/epilogue.py:153", None),
+    ("fused_epilogue.mix", EPI, "fedml_tpu/ops/epilogue.py:159", "none"),
+    ("fused_epilogue.sgd", EPI, "fedml_tpu/ops/epilogue.py:165", "sgd"),
+    ("fused_epilogue.momentum", EPI, "fedml_tpu/ops/epilogue.py:173",
+     "momentum"),
+    ("fused_epilogue.adam", EPI, "fedml_tpu/ops/epilogue.py:183", "adam"),
+]
+CHANNELS = ("none", "sgd", "momentum", "adam")
+# (atol, rtol): float32 sums in another order — the fused channels round
+# every other operation as their plain version does (built without fma
+# contraction), so a float32 ulp of the reduce is all that differs
+F32_TOL = (2e-6, 2e-6)
 BF16_TOL = (1e-6, 2.0 ** -8)    # one bfloat16 step on a last-bit difference
 
 
 def phase(n, name, msg):
-    print(f"[{n}/7 {name}] {msg}", flush=True)
+    print(f"[{n}/{PHASES} {name}] {msg}", flush=True)
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def reset_launches():
+    for k in epilogue.LAUNCHES:
+        epilogue.LAUNCHES[k] = 0
+
+
+def read_launches():
+    """The launch counts, with ``fused_epilogue`` the sum of its channels."""
+    counts = dict(epilogue.LAUNCHES)
+    counts["fused_epilogue"] = sum(
+        n for k, n in counts.items() if k.startswith("fused_epilogue."))
+    return counts
 
 
 def card_peaks(name):
@@ -113,22 +153,44 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    paths = cuda_build.build_all([k[0] for k in KERNELS])
+    names = ["weighted_reduce", "fused_epilogue"]
+    paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in paths
-             for ln in cuda_build.build_logs.get(name, "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase(2, "build", f"{len(paths)} kernel source(s) built from "
+    phase(2, "build", f"{len(paths)} kernel sources built from "
           f"fedml_tpu_torch/csrc in {secs:.1f} s with "
-          f"{cuda_build.nvcc_path()}: "
+          f"{cuda_build.nvcc_path()} {' '.join(cuda_build.NVCC_FLAGS)}: "
           + " | ".join(f"{n} -> {os.path.relpath(p, ROOT)}"
                        for n, p in paths.items()))
-    for ln in ptxas:
-        print(f"    ptxas: {ln}", flush=True)
+    for name in names:
+        log = cuda_build.build_logs.get(name, "")
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln]
+        print(f"    ptxas {name}: {len(regs)} kernels, registers "
+              f"{sorted(set(regs), key=int)}; spills: "
+              f"{spills[:4] or 'none'}",
+              flush=True)
     return secs
 
 
-def _cases(d_main):
+def _err(got, ref, tol, label):
+    """Max |got − ref|, checked against atol + rtol·|ref|."""
+    atol, rtol = tol
+    check(got.dtype == ref.dtype and got.shape == ref.shape,
+          f"{label}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+          f"version {ref.dtype} {tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite kernel output")
+    diff = (g - r).abs()
+    err = float(diff.max())
+    check(bool((diff <= atol + rtol * r.abs()).all()),
+          f"{label}: kernel vs plain max |err| {err:.3g} exceeds atol "
+          f"{atol:g} + rtol {rtol:g}·|ref|")
+    return err
+
+
+def _reduce_cases(d_main):
     """(label, C, D, dtype, weights kind) — the cases of
     tests/test_torch_epilogue.py, a ragged odd D, 1024 clients, and the
     main path's flat buffer."""
@@ -145,55 +207,151 @@ def _cases(d_main):
             ("main_bf16", 10, d_main, torch.bfloat16, "pos")]
 
 
-def _inputs(c, d, dtype, kind, gen, dev):
-    if dtype == torch.int32:
-        x = torch.randint(0, 50, (c, d), generator=gen, dtype=torch.int32)
-    else:
-        x = torch.randn(c, d, generator=gen).to(dtype)
+def _weights(c, kind, gen):
     w = torch.rand(c, generator=gen) * 2.5 + 0.5
     if kind == "masked":
         w[[1, 4]] = 0.0
     elif kind == "zero":
         w.zero_()
-    return x.to(dev), w.to(dev)
+    return w
 
 
-def main_flat_size():
-    """Columns of the main path's [C, D] float32 buffer: ResNet-56's
-    variables, laid out as the Parrot engine lays them out."""
+def _inputs(c, d, dtype, kind, gen, dev):
+    if dtype == torch.int32:
+        x = torch.randint(0, 50, (c, d), generator=gen, dtype=torch.int32)
+    else:
+        x = torch.randn(c, d, generator=gen).to(dtype)
+    return x.to(dev), _weights(c, kind, gen).to(dev)
+
+
+def main_layout():
+    """(P, D) of the main path's [C, D] float32 buffer: ResNet-56's
+    parameter columns and all its columns, as the Parrot engine lays them
+    out."""
     flat = FlatVariables(CIFARResNet(depth=56, num_classes=10))
     check(list(flat.flat) == [torch.float32], "ResNet-56 is all float32")
-    return flat.flat[torch.float32].numel()
+    return (flat.param_cols[torch.float32],
+            flat.flat[torch.float32].numel())
+
+
+def _fused_cases(p_main, d_main):
+    """(label, opt, C, P, row stride, stacked dtype, global dtype, weights,
+    s, t) — every channel on float32 and bfloat16 stacked buffers, a
+    bfloat16 global, masked and all-zero weights, one client and 1,024, a
+    ragged P (the one-column path), adam at t = 1 (zero state) and t = 5
+    (random state), s ≠ 1 for mix and sgd, and each channel on the FedOpt
+    round's parameter columns."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for o in CHANNELS:
+        cases += [(f"{o}_f32", o, 5, 910, 910, f32, f32, "pos", 0.7, 5),
+                  (f"{o}_bf16", o, 5, 910, 910, bf16, f32, "pos", 0.7, 5)]
+    cases += [
+        ("adam_bf16_global", "adam", 5, 910, 910, bf16, bf16, "pos", 1.0, 5),
+        ("sgd_masked", "sgd", 6, 910, 910, f32, f32, "masked", 1.0, 0),
+        ("momentum_all_zero", "momentum", 4, 910, 910, f32, f32, "zero",
+         1.0, 0),
+        ("adam_one_client", "adam", 1, 9, 9, f32, f32, "pos", 1.0, 5),
+        ("mix_c1024", "none", 1024, 4099, 4099, f32, f32, "pos", 0.5, 0),
+        ("adam_ragged", "adam", 3, 1027, 1027, f32, f32, "pos", 1.0, 5),
+        ("adam_t1", "adam", 5, 910, 910, f32, f32, "pos", 1.0, 0)]
+    for o in CHANNELS:
+        cases.append((f"round_{o}", o, 10, p_main, d_main, f32, f32, "pos",
+                      1.0, 5 if o == "adam" else 0))
+    return cases
+
+
+def _fused_inputs(case, gen, dev, lr=0.1):
+    _, opt, c, p, ld, xdt, gdt, kind, s, t = case
+    x = torch.randn(c, ld, generator=gen).to(xdt).to(dev)[:, :p]
+    g = torch.randn(p, generator=gen).to(gdt).to(dev)
+    w = _weights(c, kind, gen).to(dev)
+    st = None
+    if opt == "momentum":
+        st = {"m": torch.randn(p, generator=gen).to(dev)}
+    elif opt == "adam":
+        st = {"m": (torch.randn(p, generator=gen) if t else
+                    torch.zeros(p)).to(dev),
+              "v": (torch.rand(p, generator=gen) if t else
+                    torch.zeros(p)).to(dev), "t": t}
+    return x, g, w, s, epilogue.EpilogueSpec(opt=opt, lr=lr), st
+
+
+def _clone(st):
+    return None if st is None else {
+        k: v.clone() if isinstance(v, torch.Tensor) else v
+        for k, v in st.items()}
 
 
 def kernel_phase(dev):
-    d_main = main_flat_size()
+    p_main, d_main = main_layout()
     gen = torch.Generator().manual_seed(0)
     errs = {}
-    for label, c, d, dtype, kind in _cases(d_main):
+    for label, c, d, dtype, kind in _reduce_cases(d_main):
         x, w = _inputs(c, d, dtype, kind, gen, dev)
         got = epilogue.weighted_reduce(x, w)
         torch.cuda.synchronize()
         ref = epilogue.weighted_reduce_reference(x, w)
-        torch.cuda.synchronize()
-        check(got.dtype == ref.dtype and got.shape == ref.shape,
-              f"{label}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
-              f"version {ref.dtype} {tuple(ref.shape)}")
-        atol, rtol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-        diff = (got.float() - ref.float()).abs()
-        bound = atol + rtol * ref.float().abs()
-        err = float(diff.max())
-        check(bool(torch.isfinite(got.float()).all()),
-              f"{label}: non-finite kernel output")
-        check(bool((diff <= bound).all()),
-              f"{label}: kernel vs plain max |err| {err:.3g} exceeds "
-              f"atol {atol:g} + rtol {rtol:g}·|ref|")
-        errs[label] = err
+        errs[label] = _err(got, ref, BF16_TOL if dtype == torch.bfloat16
+                           else F32_TOL, f"weighted_reduce {label}")
+    # the FedOpt round's BatchNorm columns: a column range, row stride D
+    xd, w = _inputs(10, d_main, torch.float32, "pos", gen, dev)
+    out = torch.zeros(d_main, device=dev)
+    got = epilogue.weighted_reduce(xd[:, p_main:], w, out=out[p_main:])
+    torch.cuda.synchronize()
+    check(got.data_ptr() == out[p_main:].data_ptr() and
+          not bool(out[:p_main].any()), "weighted_reduce wrote outside out")
+    errs["stats_cols"] = _err(got, epilogue.weighted_reduce_reference(
+        xd[:, p_main:].contiguous(), w), F32_TOL, "weighted_reduce stats")
     phase(3, "kernels", "weighted_reduce vs plain version: " + ", ".join(
         f"{k} {v:.2e}" for k, v in errs.items())
         + f" (tolerance atol+rtol·|ref|: f32 {F32_TOL}, bf16 {BF16_TOL}); "
-        f"main shape [10, {d_main}]")
-    return d_main, errs["main_f32"]
+        f"main shape [10, {d_main}], stats columns [{p_main}, {d_main}) "
+        f"at row stride {d_main}")
+
+    ferrs = {}
+    for case in _fused_cases(p_main, d_main):
+        label, gdt = case[0], case[6]
+        x, g, w, s, spec, st = _fused_inputs(case, gen, dev)
+        got, got_st = epilogue.fused_epilogue(g, x, w, s, spec, _clone(st))
+        torch.cuda.synchronize()
+        ref, ref_st = epilogue.fused_epilogue_reference(g, x, w, s, spec,
+                                                        _clone(st))
+        tol = BF16_TOL if gdt == torch.bfloat16 else F32_TOL
+        err = _err(got, ref, tol, f"fused_epilogue {label}")
+        for k in ("m", "v"):
+            if ref_st is not None and k in ref_st:
+                err = max(err, _err(got_st[k], ref_st[k], F32_TOL,
+                                    f"fused_epilogue {label} {k}"))
+        check(ref_st is None or got_st.get("t") == ref_st.get("t"),
+              f"fused_epilogue {label}: t")
+        ferrs[label] = err
+    phase(3, "kernels", "fused_epilogue vs plain version (max over out, m, "
+          "v): " + ", ".join(f"{k} {v:.2e}" for k, v in ferrs.items())
+          + f" (tolerance: f32 global {F32_TOL}, bf16 global {BF16_TOL}); "
+          f"round shape: columns [0, {p_main}) of [10, {d_main}]")
+
+    # the async fold at the main shape: the mix channel's path
+    stale = torch.tensor([1.0, 0.5, 0.25, 1.0, 0.125, 0.5, 1.0, 0.5, 0.25,
+                          1.0])
+    wf = (stale * torch.randint(8, 64, (10,), generator=gen)).to(dev)
+    g = torch.randn(d_main, generator=gen).to(dev)
+    reset_launches()
+    folded = fold_buffer({"flat": g}, {"flat": xd}, wf, 0.8)["flat"]
+    torch.cuda.synchronize()
+    fold_launches = read_launches()
+    check(fold_launches["fused_epilogue.none"] == 1,
+          f"fold_buffer launched {fold_launches}")
+    ref, _ = epilogue.fused_epilogue_reference(g, xd, wf, 0.8)
+    errs["fold"] = _err(folded, ref, F32_TOL, "fold_buffer")
+    phase(3, "kernels", f"fold_buffer at [10, {d_main}], server_lr 0.8: "
+          f"max |err| {errs['fold']:.2e} (tolerance {F32_TOL}), "
+          f"launches {fold_launches['fused_epilogue.none']} "
+          f"fused_epilogue.mix")
+    max_err = {"weighted_reduce": max(errs["main_f32"], errs["stats_cols"])}
+    for c in CHANNELS:
+        max_err[c] = ferrs[f"round_{c}"]
+    return p_main, d_main, max_err, fold_launches
 
 
 def _time_ms(fn, flush, n=50, warmup=5):
@@ -214,12 +372,25 @@ def _time_ms(fn, flush, n=50, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def timing_phase(dev, d_main, card):
+#: float32 operations per column after the reduce, by channel (sub, mul,
+#: add, div, sqrt each one)
+CHANNEL_OPS = {"none": 3, "sgd": 4, "momentum": 6, "adam": 16}
+
+
+def _bound(nbytes, ops, card):
+    bw, flops = card_peaks(card)
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def timing_phase(dev, p_main, d_main, card):
     c = 10
     gen = torch.Generator().manual_seed(1)
     x, w = _inputs(c, d_main, torch.float32, "pos", gen, dev)
     wn = w / torch.clamp(w.sum(), min=1e-12)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    # plain, kernel, kernel, plain
     plain_ms = _time_ms(lambda: epilogue.weighted_reduce_reference(x, w),
                         flush)
     kernel_ms = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush)
@@ -227,76 +398,196 @@ def timing_phase(dev, d_main, card):
     kernel_ms_2 = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush)
     plain_ms_2 = _time_ms(lambda: epilogue.weighted_reduce_reference(x, w),
                           flush)
-    bw, flops = card_peaks(card)
     nbytes = c * d_main * 4 + d_main * 4 + c * 4
-    ops = 2 * c * d_main
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = _bound(nbytes, 2 * c * d_main, card)
+    out = {"weighted_reduce": dict(
+        ms=statistics.median([kernel_ms, kernel_ms_2]),
+        plain_ms=statistics.median([plain_ms, plain_ms_2]),
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
     phase(4, "timing", f"weighted_reduce at [10, {d_main}] f32, cold L2, "
           f"median of 50: kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms, "
           f"plain {plain_ms:.4f} / {plain_ms_2:.4f} ms, library "
           f"matmul(wn, x) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {nbytes / 1e6:.2f} MB at {bw / 1e12:.2f} TB/s) "
-          f"-> {bound_ms / kernel_ms:.1%} of the bound")
-    return dict(ms=statistics.median([kernel_ms, kernel_ms_2]),
-                plain_ms=statistics.median([plain_ms, plain_ms_2]),
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+          f"({bound_by}: {nbytes / 1e6:.2f} MB at "
+          f"{card_peaks(card)[0] / 1e12:.2f} TB/s) -> "
+          f"{bound_ms / kernel_ms:.1%} of the bound")
+
+    # each channel on the FedOpt round's parameter columns at s = 1, the
+    # mixing rate of the Parrot path.  mix and sgd are affine in g and the
+    # reduce, (1 − a)·g + a·(wn·x) with a = s and lr·s: one addmv (a cuBLAS
+    # gemv over the column range) computes each.  momentum and adam also
+    # update their state, which no single PyTorch call does: no library time
+    cols = x[:, :p_main]
+    g = torch.randn(p_main, generator=gen).to(dev)
+    res = torch.empty_like(g)
+    lib_res = torch.empty_like(g)
+    for opt in CHANNELS:
+        spec = epilogue.EpilogueSpec(opt=opt, lr=1e-3)
+        st = epilogue.init_opt_state(g, spec)
+        if st is not None:
+            st["m"].normal_()
+            if "v" in st:
+                st["v"].uniform_()
+                st["t"] = 4
+        st_plain = _clone(st)
+
+        def kernel():
+            epilogue.fused_epilogue(g, cols, w, 1.0, spec, st, out=res)
+
+        def plain():
+            epilogue.fused_epilogue_reference(g, cols, w, 1.0, spec,
+                                              st_plain)
+
+        lib_ms, lib_note = None, ("none (no single PyTorch call also "
+                                  "updates the optimizer state)")
+        if opt in ("none", "sgd"):
+            a = 1.0 if opt == "none" else spec.lr
+
+            def library():
+                torch.addmv(g, cols.t(), wn, beta=1.0 - a, alpha=a,
+                            out=lib_res)
+
+            library()
+            ref, _ = epilogue.fused_epilogue_reference(g, cols, w, 1.0, spec)
+            lib_err = _err(lib_res, ref, (1e-5, 1e-5), f"addmv for {opt}")
+            lib_ms = _time_ms(library, flush)
+            lib_note = (f"addmv(g, x.t(), wn, beta={1.0 - a:g}, alpha={a:g})"
+                        f" {lib_ms:.4f} ms (vs plain max |err| "
+                        f"{lib_err:.2e})")
+        p1 = _time_ms(plain, flush)
+        k1 = _time_ms(kernel, flush)
+        k2 = _time_ms(kernel, flush)
+        p2 = _time_ms(plain, flush)
+        streams = {"none": 0, "sgd": 0, "momentum": 2, "adam": 4}[opt]
+        nbytes = (c + 2 + streams) * p_main * 4 + c * 4
+        bound_ms, bound_by = _bound(
+            nbytes, (2 * c + CHANNEL_OPS[opt]) * p_main, card)
+        ms = statistics.median([k1, k2])
+        out[opt] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                        library_ms=lib_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+        phase(4, "timing", f"fused_epilogue.{opt if opt != 'none' else 'mix'}"
+              f" at columns [0, {p_main}) of [10, {d_main}] f32, cold L2, "
+              f"median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p1:.4f} / {p2:.4f} ms, library {lib_note}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "
+              f"{bound_ms / ms:.1%} of the bound")
+    return out
 
 
-def _small_round(device):
+def _small_round(device, **kw):
     """One uniform Parrot round of a ResNet-8 in float32 on ``device``,
-    from the same seeded variables: the global model as a flax tree."""
+    from the same seeded variables: the global model as a flax tree, the
+    final metrics and the API."""
     args = fedml_tpu_torch.Config(
         dataset="cifar10", backend="parrot", client_num_in_total=4,
         client_num_per_round=2, comm_round=1, batch_size=16,
         learning_rate=0.05, data_scale=0.02, compute_dtype="float32",
         frequency_of_the_test=1,
-        data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_small"))
+        data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_small"),
+        **kw)
     dataset = fedml_tpu_torch.data.load(args)
     module = CIFARResNet(depth=8, num_classes=10,
                          generator=torch.Generator().manual_seed(0))
     api = ParrotAPI(args, device, dataset,
                     ModelBundle(module, (32, 32, 3), 10))
     final = api.train()
-    return api.global_flax_variables(), final
+    return api.global_flax_variables(), final, api
+
+
+def _flat_tree(tree, coll):
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            out.append(np.asarray(t, np.float32).ravel())
+
+    walk(tree[coll])
+    return np.concatenate(out)
+
+
+#: the card rounds of the parity phase: (label, config, channel)
+PARITY = [
+    ("FedAvg", {}, None),
+    ("FedOpt adam", dict(FEDOPT), "adam"),
+    ("FedOpt sgd momentum 0.9", dict(federated_optimizer="FedOpt",
+                                     server_optimizer="sgd", server_lr=0.5,
+                                     server_momentum=0.9), "momentum"),
+    ("FedOpt sgd", dict(federated_optimizer="FedOpt", server_optimizer="sgd",
+                        server_lr=0.5, server_momentum=0.0), "sgd"),
+]
 
 
 def parity_phase(dev):
-    gpu_vars, gpu_m = _small_round(dev)
-    cpu_vars, cpu_m = _small_round(torch.device("cpu"))
-    worst = 0.0
-
-    def walk(a, b):
-        nonlocal worst
-        if isinstance(a, dict):
-            check(a.keys() == b.keys(), "variable trees differ")
-            for k in a:
-                walk(a[k], b[k])
+    """Card vs CPU, one round each.  FedAvg and FedOpt's sgd channels are
+    linear in the clients' results: cuDNN sums convolutions in another
+    order than the CPU, and one SGD epoch at lr 0.05 keeps that under 1e-3.
+    Adam divides the pseudo-gradient by its own RMS, so each parameter
+    moves by about server_lr whatever its size, and a component below that
+    training noise can flip sign: every element within 2·server_lr, and at
+    least 99 % of them within 1e-5 (the ones that do not flip agree to
+    float32 rounding)."""
+    launches = {}
+    for label, kw, channel in PARITY:
+        reset_launches()
+        gpu_vars, gpu_m, api = _small_round(dev, **kw)
+        torch.cuda.synchronize()
+        launches[label] = read_launches()
+        cpu_vars, cpu_m, _ = _small_round(torch.device("cpu"), **kw)
+        groups = len(api.global_vars)
+        if channel is None:
+            check(launches[label]["weighted_reduce"] == groups
+                  and launches[label]["fused_epilogue"] == 0,
+                  f"{label}: launches {launches[label]}")
         else:
-            worst = max(worst, float(np.abs(a - b).max()))
+            check(launches[label]["fused_epilogue"] == 1
+                  and launches[label][f"fused_epilogue.{channel}"] == 1
+                  and launches[label]["weighted_reduce"] == groups,
+                  f"{label}: launches {launches[label]}")
+        d_stats = np.abs(_flat_tree(gpu_vars, "batch_stats")
+                         - _flat_tree(cpu_vars, "batch_stats"))
+        d_params = np.abs(_flat_tree(gpu_vars, "params")
+                          - _flat_tree(cpu_vars, "params"))
+        check(d_stats.max() <= 1e-3,
+              f"{label}: card vs CPU max |Δbatch_stats| {d_stats.max():.3g}")
+        if channel == "adam":
+            lr = float(kw["server_lr"])
+            close = float(np.mean(d_params <= 1e-5))
+            check(d_params.max() <= 2 * lr and close >= 0.99,
+                  f"{label}: card vs CPU max |Δparams| "
+                  f"{d_params.max():.3g} (limit {2 * lr:g}), "
+                  f"{close:.2%} within 1e-5")
+            extra = f", {close:.3%} of params within 1e-5"
+        else:
+            check(d_params.max() <= 1e-3,
+                  f"{label}: card vs CPU max |Δparams| {d_params.max():.3g}")
+            extra = ""
+        dl = abs(gpu_m["train_loss"] - cpu_m["train_loss"])
+        check(dl <= 1e-4 * max(1.0, abs(cpu_m["train_loss"])),
+              f"{label}: train_loss {gpu_m['train_loss']} vs "
+              f"{cpu_m['train_loss']}")
+        phase(5, "parity", f"ResNet-8 f32 round, {label}, card vs CPU: max "
+              f"|Δparams| {d_params.max():.2e}, max |Δbatch_stats| "
+              f"{d_stats.max():.2e}{extra}, train_loss "
+              f"{gpu_m['train_loss']:.6f} vs {cpu_m['train_loss']:.6f}, "
+              f"test_acc {gpu_m['test_acc']:.4f} vs {cpu_m['test_acc']:.4f}; "
+              f"card launches "
+              + ", ".join(f"{k} {v}" for k, v in launches[label].items()
+                          if v))
+    return launches
 
-    walk(gpu_vars, cpu_vars)
-    # cuDNN sums convolutions in another order than the CPU; one SGD epoch
-    # at lr 0.05 keeps that at float32 rounding times the gradient's scale
-    check(worst <= 1e-3, f"card vs CPU round: max |Δvariables| {worst:.3g}")
-    dl = abs(gpu_m["train_loss"] - cpu_m["train_loss"])
-    check(dl <= 1e-4 * max(1.0, abs(cpu_m["train_loss"])),
-          f"card vs CPU round: train_loss {gpu_m['train_loss']} vs "
-          f"{cpu_m['train_loss']}")
-    phase(5, "parity", f"ResNet-8 f32 round, card vs CPU: max |Δvariables| "
-          f"{worst:.2e} (tol 1e-3), train_loss {gpu_m['train_loss']:.6f} vs "
-          f"{cpu_m['train_loss']:.6f}, test_acc {gpu_m['test_acc']:.4f} vs "
-          f"{cpu_m['test_acc']:.4f}")
 
-
-def main_path_phase():
+def main_path_phase(n, label, **overrides):
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in epilogue.LAUNCHES:
-        epilogue.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
-    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(**MAIN_CONFIG))
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
+        **dict(MAIN_CONFIG, **overrides)))
     device = fedml_tpu_torch.device.get_device(args)
     dataset = fedml_tpu_torch.data.load(args)
     t_data = time.perf_counter() - t0
@@ -306,7 +597,7 @@ def main_path_phase():
     start = {dt: f.clone() for dt, f in api.global_vars.items()}
     final = runner.run()
     torch.cuda.synchronize()
-    launches = dict(epilogue.LAUNCHES)
+    launches = read_launches()
     total = time.perf_counter() - t0
 
     hist = api.round_history
@@ -330,19 +621,32 @@ def main_path_phase():
     check(math.isfinite(final["test_acc"]) and 0 <= final["test_acc"] <= 1,
           f"test_acc {final['test_acc']}")
     groups = len(api.global_vars)
-    check(launches["weighted_reduce"] == ROUNDS * groups,
-          f"weighted_reduce launched {launches['weighted_reduce']} times in "
-          f"{ROUNDS} rounds over {groups} dtype group(s)")
+    fedopt = api.algo == "FedOpt"
+    want_fused = ROUNDS * len(api.vars.param_dtypes()) if fedopt else 0
+    check(launches["weighted_reduce"] == ROUNDS * groups
+          and launches["fused_epilogue"] == want_fused,
+          f"{ROUNDS} rounds over {groups} dtype group(s) launched "
+          f"{launches}")
+    extra = ""
+    if fedopt:
+        check(launches["fused_epilogue.adam"] == want_fused,
+              f"FedOpt's server adam ran {launches}")
+        ts = [st["t"] for st in api.server_state["opt_state"].values()]
+        check(ts == [ROUNDS] * len(ts), f"adam step counts {ts}")
+        cols = api.vars.stats_range(torch.float32)
+        extra = (f", adam t {ts}, server step = fused_epilogue over columns "
+                 f"[0, {cols.start}) + weighted_reduce over "
+                 f"[{cols.start}, {cols.stop})")
     peak = torch.cuda.max_memory_allocated()
-    phase(6, "main path", f"Parrot FedAvg {args.model} {args.compute_dtype}, "
-          f"{api.n_total} "
-          f"clients, {api.n_buckets} strata, {ROUNDS} rounds: "
+    phase(n, "main path", f"Parrot {label} {args.model} {args.compute_dtype}"
+          f", {api.n_total} clients, {api.n_buckets} strata, {ROUNDS} rounds: "
           f"{ROUNDS / secs:.3f} rounds/s over all rounds "
           f"({len(steady) / steady_secs:.3f} after round 0), "
           f"{samples / secs:.1f} samples/s, final test_acc "
           f"{final['test_acc']:.4f} test_loss {final['test_loss']:.4f}, "
-          f"peak memory {peak / 2**30:.2f} GiB, launches {launches}, "
-          f"data {t_data:.1f} s, whole phase {total:.1f} s")
+          f"peak memory {peak / 2**30:.2f} GiB, launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"{extra}, data {t_data:.1f} s, whole phase {total:.1f} s")
     return launches, api
 
 
@@ -373,19 +677,22 @@ def trace_phase(api):
         api.buckets = buckets
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        phase(7, "trace", "the profiler recorded no device activity: device "
-              "busy time not measured")
+        phase(PHASES, "trace", "the profiler recorded no device activity: "
+              "device busy time not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     nb = api.buckets[len(api.buckets) // 2]["nb"]
-    phase(7, "trace", f"one client ({nb} batches of 32) of the middle "
-          f"stratum, trained and aggregated: wall {wall:.3f} s, device busy "
-          f"{busy:.3f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
-          f"{len(kernels)} device activities "
-          f"({len(kernels) / nb:.0f} per batch)")
+    server = sum(us for name, us in by_name.items()
+                 if "fused_epilogue" in name or "weighted_reduce" in name)
+    phase(PHASES, "trace", f"one client ({nb} batches of 32) of the middle "
+          f"stratum, trained and aggregated with FedOpt: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s ({busy / wall:.1%}; idle "
+          f"{1 - busy / wall:.1%}), {len(kernels)} device activities "
+          f"({len(kernels) / nb:.0f} per batch), server step (fused_epilogue"
+          f" + weighted_reduce) {server / 1e3:.4f} ms")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:9.2f} ms  {name[:100]}", flush=True)
 
@@ -396,15 +703,34 @@ def main():
     dev = fedml_tpu_torch.device.get_device(
         fedml_tpu_torch.Config(device_type="cuda"))
     build_phase()
-    d_main, err = kernel_phase(dev)
-    timing = timing_phase(dev, d_main, name)
-    parity_phase(dev)
-    launches, api = main_path_phase()
+    p_main, d_main, errs, fold_launches = kernel_phase(dev)
+    timing = timing_phase(dev, p_main, d_main, name)
+    parity = parity_phase(dev)
+    # the FedAvg run's API is dropped before the FedOpt run, so that one's
+    # peak memory is its own
+    avg_launches = main_path_phase(6, "FedAvg")[0]
+    opt_launches, api = main_path_phase(7, "FedOpt (server adam)", **FEDOPT)
     trace_phase(api)
-    kname, source, replaces = KERNELS[0]
-    print(json.dumps({"kernels": [dict(
-        name=kname, route="cuda", source=source, replaces=replaces,
-        launches=launches[kname], max_abs_err=err, **timing)]}), flush=True)
+    # launches, each from its own path: the weighted reduce from both main
+    # paths, adam from the FedOpt main path, momentum and sgd from their
+    # card rounds in phase 5, mix from the async fold in phase 3
+    launches = {
+        "weighted_reduce": (avg_launches["weighted_reduce"]
+                            + opt_launches["weighted_reduce"]),
+        "adam": opt_launches["fused_epilogue.adam"],
+        "momentum": parity["FedOpt sgd momentum 0.9"][
+            "fused_epilogue.momentum"],
+        "sgd": parity["FedOpt sgd"]["fused_epilogue.sgd"],
+        "none": fold_launches["fused_epilogue.none"],
+    }
+    rows = []
+    for kname, source, replaces, channel in KERNELS:
+        key = channel or kname
+        check(launches[key] > 0, f"{kname}: no launch on its path")
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces, launches=launches[key],
+                         max_abs_err=errs[key], **timing[key]))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

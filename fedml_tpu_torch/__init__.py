@@ -11,8 +11,8 @@ The same 5-step entry as ``fedml_tpu`` (``fedml_tpu/__init__.py``):
 plus the one-liner ``fedml_tpu_torch.run_simulation()``.  Entry points run
 on the card unless ``device_type: cpu`` asks for the CPU.  The port imports
 torch and numpy, never JAX or ``fedml_tpu``; what it needs from the JAX
-package it carries as its own copy.  The ported slice is Parrot FedAvg on
-the CIFAR ResNets (see ROADMAP.md for what is still to come).
+package it carries as its own copy.  The ported slices are Parrot FedAvg
+and FedOpt on the CIFAR ResNets (see ROADMAP.md for what is still to come).
 """
 
 from __future__ import annotations

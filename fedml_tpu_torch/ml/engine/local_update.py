@@ -1,7 +1,8 @@
 """Local-update engine: client training and evaluation.
 
-Port of ``fedml_tpu/ml/engine/local_update.py``: the FedAvg arm of
-``build_local_update``, ``make_batches`` and ``build_eval_step``.
+Port of ``fedml_tpu/ml/engine/local_update.py``: the FedAvg and FedOpt
+arms of ``build_local_update`` (both plain local SGD; FedOpt differs only
+in the server step), ``make_batches`` and ``build_eval_step``.
 
 ``batches`` is the fixed-shape layout of the JAX package: ``{"x": [nb, B,
 ...], "y": [nb, B], "mask": [nb, B]}`` with zero-mask padding.  The JAX
@@ -24,9 +25,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ...constants import FED_OPT_FEDAVG
+from ...constants import FED_OPT_FEDAVG, FED_OPT_FEDOPT
 from .model_bundle import FlatVariables, ModelBundle
 from .optimizers import build_client_optimizer
+
+
+#: algorithms whose clients train with plain local SGD
+_PLAIN_SGD = (FED_OPT_FEDAVG, FED_OPT_FEDOPT)
 
 
 def make_batches(x, y, batch_size: int, num_batches: int,
@@ -63,10 +68,10 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
     whether any mask entry is set (computed from ``batches["mask"]`` when
     omitted, which waits for the device)."""
     algo = str(getattr(cfg, "federated_optimizer", FED_OPT_FEDAVG))
-    if algo != FED_OPT_FEDAVG:
+    if algo not in _PLAIN_SGD:
         raise NotImplementedError(
             f"local update for {algo!r} is not ported yet; the port runs "
-            f"{FED_OPT_FEDAVG}")
+            f"{', '.join(_PLAIN_SGD)}")
     epochs = int(getattr(cfg, "epochs", 1))
     sgd_step = build_client_optimizer(cfg)
 

@@ -6,16 +6,19 @@ module's parameters plus its BatchNorm running statistics (the JAX
 aggregation averages.
 
 ``FlatVariables`` lays that state out as one contiguous buffer per dtype,
-with every parameter and buffer of the module a view into it.  Loading a
-global model into the module is then one copy per dtype, a client's trained
-state is one row of a stacked ``[C, D]`` buffer, and the aggregation kernel
-reduces every leaf of one dtype in one launch.
+with every parameter and buffer of the module a view into it, parameters
+first.  Loading a global model into the module is then one copy per dtype,
+a client's trained state is one row of a stacked ``[C, D]`` buffer, and the
+aggregation kernels take every leaf of one dtype in one launch — the
+parameter columns and the statistics columns apart where FedOpt's server
+step treats them apart.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -83,39 +86,91 @@ def masked_loss(task: str, logits: torch.Tensor, y: torch.Tensor,
     return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _pad(n: int) -> int:
+    return -(-n // FLAT_ALIGN) * FLAT_ALIGN
+
+
+class FlatLeaf(NamedTuple):
+    """Where one parameter or buffer of the module lies in its dtype's flat
+    buffer."""
+
+    name: str
+    dtype: torch.dtype
+    offset: int
+    shape: Tuple[int, ...]
+    is_param: bool
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+
 class FlatVariables:
     """A module's parameters and buffers as views into one flat buffer per
     dtype (``self.flat[dtype]``, length padded to ``FLAT_ALIGN``).
+
+    The layout contract: in each dtype's buffer the parameters (the JAX
+    ``params`` collection) come first, from column 0, and the buffers (the
+    BatchNorm ``batch_stats``) follow from column ``param_cols[dtype]``, the
+    parameters' count padded to ``FLAT_ALIGN`` — so both ranges start
+    16-byte aligned and a kernel can take either as a column range of a
+    stacked ``[C, D]`` buffer.  Padding columns hold zeros.
 
     Construct it after the module is on its device: moving the module
     afterwards would reallocate the tensors and break the views."""
 
     def __init__(self, module: nn.Module) -> None:
         self.module = module
-        leaves: List[Tuple[str, torch.Tensor]] = (
-            list(module.named_parameters()) + list(module.named_buffers()))
-        sizes: Dict[torch.dtype, int] = {}
-        layout = []
-        for name, t in leaves:
-            off = sizes.get(t.dtype, 0)
-            layout.append((name, t, off))
-            sizes[t.dtype] = off + t.numel()
-        device = leaves[0][1].device
+        params = list(module.named_parameters())
+        buffers = list(module.named_buffers())
+        n_params: Dict[torch.dtype, int] = {}
+        for _, t in params:
+            n_params[t.dtype] = n_params.get(t.dtype, 0) + t.numel()
+        #: per dtype, P: where the buffers start (0 without parameters)
+        self.param_cols: Dict[torch.dtype, int] = {
+            t.dtype: _pad(n_params.get(t.dtype, 0)) for _, t in
+            params + buffers}
+        #: every leaf's place, parameters first, in module order
+        self.layout: List[FlatLeaf] = []
+        for leaves, is_param, start in ((params, True, {}),
+                                        (buffers, False, self.param_cols)):
+            ends = {dt: start.get(dt, 0) for dt in self.param_cols}
+            for name, t in leaves:
+                self.layout.append(FlatLeaf(name, t.dtype, ends[t.dtype],
+                                            tuple(t.shape), is_param))
+                ends[t.dtype] += t.numel()
+        device = (params + buffers)[0][1].device
         self.flat: Dict[torch.dtype, torch.Tensor] = {
-            dt: torch.zeros(-(-n // FLAT_ALIGN) * FLAT_ALIGN, dtype=dt,
-                            device=device)
-            for dt, n in sizes.items()}
+            dt: torch.zeros(_pad(n), dtype=dt, device=device)
+            for dt, n in ends.items()}
         self.params: List[nn.Parameter] = []
-        for name, t, off in layout:
-            view = self.flat[t.dtype][off:off + t.numel()].view(t.shape)
+        tensors = dict(params + buffers)
+        for leaf in self.layout:
+            t = tensors[leaf.name]
+            view = self.flat[leaf.dtype][
+                leaf.offset:leaf.offset + leaf.numel].view(leaf.shape)
             view.copy_(t.detach())
-            prefix, _, leaf = name.rpartition(".")
+            prefix, _, name = leaf.name.rpartition(".")
             owner = module.get_submodule(prefix)
-            if isinstance(t, nn.Parameter):
+            if leaf.is_param:
                 t.data = view
                 self.params.append(t)
             else:
-                owner._buffers[leaf] = view
+                owner._buffers[name] = view
+
+    def param_dtypes(self) -> List[torch.dtype]:
+        """The float dtype groups that hold parameters: those a server
+        optimizer steps."""
+        return [dt for dt, p in self.param_cols.items()
+                if p and dt.is_floating_point]
+
+    def params_range(self, dtype: torch.dtype) -> slice:
+        """The parameter columns of ``dtype``'s buffer, ``[0, P)``."""
+        return slice(0, self.param_cols[dtype])
+
+    def stats_range(self, dtype: torch.dtype) -> slice:
+        """The buffer (BatchNorm statistics) columns, ``[P, D)``."""
+        return slice(self.param_cols[dtype], self.flat[dtype].numel())
 
     def snapshot(self) -> Dict[torch.dtype, torch.Tensor]:
         return {dt: f.clone() for dt, f in self.flat.items()}

@@ -1,77 +1,210 @@
-"""Round-epilogue kernels: the weighted reduce over the client axis.
+"""Round-epilogue kernels: the weighted reduce over the client axis, and the
+fused server step (reduce → pseudo-gradient → optimizer → cast).
 
-Port of ``fedml_tpu/ops/epilogue.py::weighted_reduce`` and its Pallas
-``_reduce_kernel``.  The kernel is ``csrc/weighted_reduce.cu`` (CUDA C++ for
-``sm_90a``, built and bound by ``ops/cuda_build.py``); its note says what
-bounds it and how the design answers that.
+Port of ``fedml_tpu/ops/epilogue.py``:
 
-Contract (``agg_stacked``'s): ``out = Σ_c (w_c / max(Σw, 1e-12)) · x[c]``,
-accumulated in float32 and cast back to the input dtype; a non-float input
-gives float32.  Weights need not be normalised; weight 0 masks a client out.
+* ``weighted_reduce`` and its Pallas ``_reduce_kernel`` — the kernel is
+  ``csrc/weighted_reduce.cu``;
+* ``EpilogueSpec``, ``NONE_SPEC``, ``spec_from_args``, ``init_opt_state``
+  and ``fused_epilogue`` with its Pallas ``_mix_kernel``, ``_sgd_kernel``,
+  ``_momentum_kernel`` and ``_adam_kernel`` — one kernel template over the
+  four channels, ``csrc/fused_epilogue.cu``.
+
+Both are CUDA C++ for ``sm_90a``, built and bound by ``ops/cuda_build.py``;
+each source's note says what bounds it and how the design answers that.
+
+Contracts (the JAX package's):
+
+* ``weighted_reduce``: ``out = Σ_c (w_c / max(Σw, 1e-12)) · x[c]``,
+  accumulated in float32 and cast back to the input dtype; a non-float input
+  gives float32.  Weights need not be normalised; weight 0 masks a client
+  out.
+* ``fused_epilogue``: the same reduce, cast to the stacked dtype and back to
+  float32 (``_acc_tile``'s double rounding), then in float32 one channel —
+  ``none``: ``g + s·(acc − g)`` (``mix_global``); ``sgd``/``momentum``/
+  ``adam``: the optax step on the pseudo-gradient ``s·(g − acc)`` — and the
+  cast to the global's dtype.  A non-float global takes the aggregate as it
+  is.  ``s`` is the mixing rate (``server_lr`` of ``fold_buffer``; 1 on the
+  Parrot path).
 
 Where it runs: a CUDA tensor launches the kernel, or the wrapper raises on
-what the kernel does not take.  A CPU tensor takes the plain version,
-``weighted_reduce_reference``; that is the only way to it.
+what the kernel does not take.  CPU tensors take the plain versions,
+``weighted_reduce_reference`` and ``fused_epilogue_reference``; that is the
+only way to them.
 
-The TPU version makes one ``pallas_call`` per leaf.  Here one call reduces a
-whole ``[C, D]`` buffer, and the Parrot engine keeps all leaves of one dtype
-in one such buffer, so a round is one launch per dtype.
+The TPU version makes one ``pallas_call`` per leaf.  Here one call covers a
+whole ``[C, D]`` buffer, or a column range of one: the Parrot engine keeps
+all leaves of one dtype in one buffer, parameters first, so a FedOpt round
+is one ``fused_epilogue`` over the parameter columns and one
+``weighted_reduce`` over the BatchNorm columns, and copies no slice.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
 
+_OPT_CODES = {"none": 0, "sgd": 1, "momentum": 2, "adam": 3}
 #: launches of each CUDA kernel of this module, counted where the wrapper
-#: launches it
-LAUNCHES = {"weighted_reduce": 0}
-
+#: launches it: ``fused_epilogue`` by optimizer channel
+LAUNCHES = {"weighted_reduce": 0,
+            **{f"fused_epilogue.{opt}": 0 for opt in _OPT_CODES}}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("weighted_reduce")
-        lib.fedml_weighted_reduce.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.fedml_weighted_reduce.restype = ctypes.c_int
+class EpilogueSpec(NamedTuple):
+    """Static server-optimizer channel of the fused epilogue.
+
+    ``opt``: none | sgd | momentum | adam (yogi and adagrad stay on the
+    unfused arm, ``ml/engine/optimizers.build_server_optimizer``).  ``lr``
+    is the server optimizer's step size (FedOpt's ``server_lr``); the
+    mixing rate is ``fused_epilogue``'s ``server_lr`` argument."""
+
+    opt: str = "none"
+    lr: float = 1.0
+    momentum: float = 0.9
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+NONE_SPEC = EpilogueSpec()
+
+
+def spec_from_args(args: Any) -> Optional[EpilogueSpec]:
+    """The fused-channel spec for ``args``'s server optimizer, or None when
+    the optimizer has no fused mapping (yogi, adagrad) or the fused epilogue
+    is switched off (``fused_epilogue: false``)."""
+    if not bool(getattr(args, "fused_epilogue", True)):
+        return None
+    name = str(getattr(args, "server_optimizer", "adam") or "adam").lower()
+    lr = float(getattr(args, "server_lr", 1e-3) or 1e-3)
+    if name == "adam":
+        return EpilogueSpec(opt="adam", lr=lr)
+    if name == "sgd":
+        mom = getattr(args, "server_momentum", 0.9)
+        if mom:
+            return EpilogueSpec(opt="momentum", lr=lr, momentum=float(mom))
+        return EpilogueSpec(opt="sgd", lr=lr)
+    return None
+
+
+def init_opt_state(global_flat: torch.Tensor, spec: EpilogueSpec
+                   ) -> Optional[Dict[str, Any]]:
+    """Zero optimizer state for ``spec`` beside the flat global parameters:
+    float32 ``m`` (momentum, adam) and ``v`` (adam) of the same length, and
+    adam's step count ``t``."""
+
+    def zeros():
+        return torch.zeros(global_flat.numel(), dtype=torch.float32,
+                           device=global_flat.device)
+
+    if spec.opt == "momentum":
+        return {"m": zeros()}
+    if spec.opt == "adam":
+        return {"m": zeros(), "v": zeros(), "t": 0}
+    return None
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    lib = cuda_build.load(name)
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "weighted_reduce":
+        lib.fedml_weighted_reduce.argtypes = [vp, ll, vp, vp, i, ll, i, i, vp]
+        lib.fedml_weighted_reduce.restype = i
         lib.fedml_weighted_reduce_max_clients.argtypes = []
-        lib.fedml_weighted_reduce_max_clients.restype = ctypes.c_int
-        lib.fedml_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.fedml_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        lib.fedml_weighted_reduce_max_clients.restype = i
+    else:
+        lib.fedml_fused_epilogue.argtypes = [vp, ll, vp, i, vp, vp, vp, vp,
+                                             ll, i, i, i, vp, i, vp]
+        lib.fedml_fused_epilogue.restype = i
+        lib.fedml_fused_epilogue_max_clients.argtypes = []
+        lib.fedml_fused_epilogue_max_clients.restype = i
+        lib.fedml_fused_epilogue_num_params.argtypes = []
+        lib.fedml_fused_epilogue_num_params.restype = i
+    lib.fedml_cuda_error_string.argtypes = [i]
+    lib.fedml_cuda_error_string.restype = ctypes.c_char_p
+    _libs[name] = lib
+    return lib
 
 
 def _out_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype.is_floating_point else torch.float32
 
 
+def _norm_weights(weights: torch.Tensor) -> torch.Tensor:
+    w = weights.float()
+    return w / torch.clamp(w.sum(), min=1e-12)
+
+
+def _reduce_f32(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    return torch.tensordot(_norm_weights(weights), stacked.float(), dims=1)
+
+
+def _rows(stacked: torch.Tensor, what: str) -> Tuple[int, int, int]:
+    """(C, columns, row stride) of ``stacked``: a contiguous ``[C, ...]``
+    tensor, or a column range ``x[:, a:b]`` of a row-major ``[C, D]`` one
+    (unit column stride, row stride ``D``)."""
+    if stacked.dim() < 1:
+        raise ValueError(f"{what}: stacked must lead with the client axis")
+    c = int(stacked.shape[0])
+    if stacked.is_contiguous():
+        d = stacked.numel() // c if c else 0
+        return c, d, d
+    if (stacked.dim() == 2 and stacked.stride(1) == 1
+            and stacked.stride(0) >= stacked.shape[1]):
+        return c, int(stacked.shape[1]), int(stacked.stride(0))
+    raise ValueError(f"{what} kernel takes a contiguous stacked buffer or a "
+                     f"column range of one, not strides {stacked.stride()}")
+
+
+def _check_launch(rc: int, lib: ctypes.CDLL, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({lib.fedml_cuda_error_string(rc).decode()})")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+# ------------------------------------------------------------ weighted reduce
 def weighted_reduce_reference(stacked: torch.Tensor,
                               weights: torch.Tensor) -> torch.Tensor:
     """The plain version: normalised weights, ``tensordot`` in float32,
     then the cast."""
-    w = weights.float()
-    wn = w / torch.clamp(w.sum(), min=1e-12)
-    acc = torch.tensordot(wn, stacked.float(), dims=1)
-    return acc.to(_out_dtype(stacked.dtype))
+    return _reduce_f32(stacked, weights).to(_out_dtype(stacked.dtype))
 
 
-def weighted_reduce(stacked: torch.Tensor,
-                    weights: torch.Tensor) -> torch.Tensor:
-    """Weighted mean of ``stacked`` ([C, ...]) over its leading client axis
-    with ``weights`` ([C]); returns a tensor of shape ``stacked.shape[1:]``."""
-    if stacked.device.type == "cpu" and weights.device.type == "cpu":
-        return weighted_reduce_reference(stacked, weights)
-    if stacked.device.type != "cuda" or weights.device != stacked.device:
+def _into(out: Optional[torch.Tensor], value: torch.Tensor) -> torch.Tensor:
+    return value if out is None else out.copy_(value.reshape(out.shape))
+
+
+def weighted_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted mean of ``stacked`` ([C, ...], or a column range ``[C, n]``
+    of a ``[C, D]`` buffer) over its leading client axis with ``weights``
+    ([C]); returns a tensor of shape ``stacked.shape[1:]``, written into
+    ``out`` when given."""
+    if _on_cpu(stacked, weights, out):
+        return _into(out, weighted_reduce_reference(stacked, weights))
+    dev = stacked.device
+    if dev.type != "cuda" or weights.device != dev or (
+            out is not None and out.device != dev):
         raise ValueError(
             f"weighted_reduce: stacked on {stacked.device} and weights on "
             f"{weights.device}; both must be on the CPU or on one card")
@@ -86,26 +219,216 @@ def weighted_reduce(stacked: torch.Tensor,
         raise ValueError(f"weighted_reduce: stacked {tuple(stacked.shape)} "
                          f"does not lead with the {weights.shape[0]} clients "
                          f"of the weights")
-    if not (stacked.is_contiguous() and weights.is_contiguous()):
-        raise ValueError("weighted_reduce kernel takes contiguous tensors")
-    lib = _kernel_lib()
-    c = int(stacked.shape[0])
-    d = stacked.numel() // c if c else 0
+    if not weights.is_contiguous():
+        raise ValueError("weighted_reduce kernel takes contiguous weights")
+    c, d, ld = _rows(stacked, "weighted_reduce")
+    lib = _kernel_lib("weighted_reduce")
     max_c = lib.fedml_weighted_reduce_max_clients()
     if not 1 <= c <= max_c or d < 1:
         raise ValueError(f"weighted_reduce kernel takes 1..{max_c} clients "
                          f"and non-empty leaves, not [{c}, {d}]")
-    out = torch.empty(stacked.shape[1:], dtype=_out_dtype(stacked.dtype),
-                      device=stacked.device)
-    dev = stacked.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(stacked.device).cuda_stream
-    rc = lib.fedml_weighted_reduce(stacked.data_ptr(), weights.data_ptr(),
-                                   out.data_ptr(), c, d, code, dev, stream)
-    if rc != 0:
-        raise RuntimeError(f"weighted_reduce kernel launch failed: CUDA "
-                           f"error {rc} "
-                           f"({lib.fedml_cuda_error_string(rc).decode()})")
+    want = _out_dtype(stacked.dtype)
+    if out is None:
+        out = torch.empty(stacked.shape[1:], dtype=want, device=dev)
+    elif (out.dtype != want or out.numel() != d
+          or not out.is_contiguous()):
+        raise ValueError(f"weighted_reduce: out must be a contiguous {want} "
+                         f"tensor of {d} elements, not {out.dtype} "
+                         f"{tuple(out.shape)}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.fedml_weighted_reduce(stacked.data_ptr(), ld, weights.data_ptr(),
+                                   out.data_ptr(), c, d, code,
+                                   _device_index(stacked), stream)
+    _check_launch(rc, lib, "weighted_reduce")
     LAUNCHES["weighted_reduce"] += 1
     return out
+
+
+# ------------------------------------------------------------ fused epilogue
+class _Step(NamedTuple):
+    """The kernel's float32 scalars, in the order of ``struct Params``, and
+    adam's new step count."""
+
+    s: float
+    lr: float
+    mu: float
+    b1: float
+    omb1: float
+    b2: float
+    omb2: float
+    eps: float
+    bc1: float
+    bc2: float
+    t: Optional[int]
+
+
+def _f32(x: Any) -> float:
+    return float(np.float32(x))
+
+
+def _step(server_lr: Any, spec: EpilogueSpec,
+          opt_state: Optional[Dict[str, Any]]) -> _Step:
+    """Check ``spec`` against ``opt_state`` and round the step's scalars to
+    float32 on the host the way the JAX package rounds them: Python floats
+    (``1.0 − b1`` computed in float64 first) met by float32 arrays, and
+    adam's bias corrections ``1 − b^t`` in float32 after ``t`` advances."""
+    if spec.opt not in _OPT_CODES:
+        raise ValueError(f"unknown epilogue optimizer {spec.opt!r}")
+    if spec.opt in ("momentum", "adam") and opt_state is None:
+        raise ValueError(f"{spec.opt} epilogue needs opt_state "
+                         f"(init_opt_state)")
+    t = None
+    bc1 = bc2 = 1.0
+    if spec.opt == "adam":
+        t = int(opt_state["t"]) + 1
+        tf = np.float32(t)
+        bc1 = float(np.float32(1.0) - np.power(np.float32(spec.b1), tf))
+        bc2 = float(np.float32(1.0) - np.power(np.float32(spec.b2), tf))
+    return _Step(_f32(float(server_lr)), _f32(spec.lr), _f32(spec.momentum),
+                 _f32(spec.b1), _f32(1.0 - spec.b1), _f32(spec.b2),
+                 _f32(1.0 - spec.b2), _f32(spec.eps), bc1, bc2, t)
+
+
+def _new_state(opt: str, opt_state: Optional[Dict[str, Any]], t: Optional[int]
+               ) -> Optional[Dict[str, Any]]:
+    if opt == "momentum":
+        return {"m": opt_state["m"]}
+    if opt == "adam":
+        return {"m": opt_state["m"], "v": opt_state["v"], "t": t}
+    return None
+
+
+def fused_epilogue_reference(global_flat: torch.Tensor,
+                             stacked: torch.Tensor, weights: torch.Tensor,
+                             server_lr: Any = 1.0,
+                             spec: EpilogueSpec = NONE_SPEC,
+                             opt_state: Optional[Dict[str, Any]] = None, *,
+                             out: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor,
+                                        Optional[Dict[str, Any]]]:
+    """The plain version of ``fused_epilogue``, with its signature and its
+    in-place state update: the JAX package's jnp fallback
+    (``fedml_tpu/ops/epilogue.py:356-372``) op for op."""
+    st = _step(server_lr, spec, opt_state)
+    if not global_flat.dtype.is_floating_point:
+        return (_into(out, weighted_reduce_reference(stacked, weights)),
+                opt_state)
+    acc = _reduce_f32(stacked, weights).to(_out_dtype(stacked.dtype)).float()
+    gf = global_flat.float()
+    if spec.opt == "none":
+        new = gf + st.s * (acc - gf)
+    else:
+        grad = st.s * (gf - acc)
+        if spec.opt == "sgd":
+            new = gf - st.lr * grad
+        elif spec.opt == "momentum":
+            m = st.mu * opt_state["m"] + grad
+            opt_state["m"].copy_(m)
+            new = gf - st.lr * m
+        else:
+            m = st.b1 * opt_state["m"] + st.omb1 * grad
+            v = st.b2 * opt_state["v"] + st.omb2 * grad * grad
+            opt_state["m"].copy_(m)
+            opt_state["v"].copy_(v)
+            mhat = m / st.bc1
+            vhat = v / st.bc2
+            new = gf - st.lr * mhat / (torch.sqrt(vhat) + st.eps)
+    return (_into(out, new.to(global_flat.dtype)),
+            _new_state(spec.opt, opt_state, st.t))
+
+
+def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
+                   weights: torch.Tensor, server_lr: Any = 1.0,
+                   spec: EpilogueSpec = NONE_SPEC,
+                   opt_state: Optional[Dict[str, Any]] = None, *,
+                   out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """The whole round epilogue in one pass: weighted reduce → ``server_lr``
+    mix / pseudo-gradient → optimizer channel → cast back.
+
+    ``global_flat``: the global parameters, ``[P]``; ``stacked``: the
+    clients' ``[C, P]``, contiguous or a column range of a ``[C, D]``
+    buffer; ``weights``: ``[C]`` float32.  Returns ``(new_global,
+    new_state)`` — the state is None for ``none`` and ``sgd``, ``{"m"}``
+    for momentum and ``{"m", "v", "t"}`` for adam.
+
+    In place: ``m`` and ``v`` of ``opt_state`` are updated in place (the
+    returned state holds the same tensors), and ``out`` — a new tensor when
+    omitted — may be ``global_flat`` itself.  Each element is read and
+    written by one thread, so no second copy of the state is needed."""
+    if _on_cpu(global_flat, stacked, weights, out,
+               *((opt_state or {}).get(k) for k in ("m", "v"))):
+        return fused_epilogue_reference(global_flat, stacked, weights,
+                                        server_lr, spec, opt_state, out=out)
+    st = _step(server_lr, spec, opt_state)
+    if not global_flat.dtype.is_floating_point:
+        # mix_global's contract: a non-float global takes the aggregate as
+        # it is, uncast, and the optimizer never touches it
+        return weighted_reduce(stacked, weights, out=out), opt_state
+    dev = stacked.device
+    m = v = None
+    if spec.opt in ("momentum", "adam"):
+        m = opt_state["m"]
+    if spec.opt == "adam":
+        v = opt_state["v"]
+    tensors = {"global": global_flat, "stacked": stacked, "weights": weights,
+               "out": out, "m": m, "v": v}
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in tensors.values()):
+        raise ValueError("fused_epilogue: " + ", ".join(
+            f"{k} on {t.device}" for k, t in tensors.items() if t is not None)
+            + "; all must be on the CPU or on one card")
+    x_code = _DTYPE_CODES.get(stacked.dtype)
+    g_code = _DTYPE_CODES.get(global_flat.dtype)
+    if x_code not in (0, 1) or g_code not in (0, 1):
+        raise TypeError(f"fused_epilogue kernel takes float32 or bfloat16 "
+                        f"stacked and global, not {stacked.dtype} and "
+                        f"{global_flat.dtype}")
+    if weights.dtype != torch.float32 or weights.dim() != 1:
+        raise TypeError(f"fused_epilogue kernel takes 1-D float32 weights, "
+                        f"not {weights.dtype} of shape {tuple(weights.shape)}")
+    for k in ("m", "v"):
+        if tensors[k] is not None and tensors[k].dtype != torch.float32:
+            raise TypeError(f"fused_epilogue kernel takes float32 {k}, not "
+                            f"{tensors[k].dtype}")
+    if global_flat.dim() != 1 or stacked.dim() != 2:
+        raise ValueError(f"fused_epilogue kernel takes a [P] global and a "
+                         f"[C, P] stacked buffer, not "
+                         f"{tuple(global_flat.shape)} and "
+                         f"{tuple(stacked.shape)}")
+    c, p, ld = _rows(stacked, "fused_epilogue")
+    if out is None:
+        out = torch.empty_like(global_flat)
+    elif out.dtype != global_flat.dtype:
+        raise TypeError(f"fused_epilogue: out is {out.dtype}, the global "
+                        f"{global_flat.dtype}")
+    for k, t in (("global", global_flat), ("out", out), ("m", m), ("v", v)):
+        if t is not None and (tuple(t.shape) != (p,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"fused_epilogue kernel takes a contiguous [{p}] "
+                             f"{k}, not {tuple(t.shape)} with strides "
+                             f"{t.stride()}")
+    if c != weights.shape[0] or not weights.is_contiguous():
+        raise ValueError(f"fused_epilogue: stacked has {c} clients, the "
+                         f"contiguous weights must have as many, not "
+                         f"{tuple(weights.shape)}")
+    lib = _kernel_lib("fused_epilogue")
+    max_c = lib.fedml_fused_epilogue_max_clients()
+    if not 1 <= c <= max_c or p < 1:
+        raise ValueError(f"fused_epilogue kernel takes 1..{max_c} clients "
+                         f"and a non-empty global, not [{c}, {p}]")
+    scalars = st[:-1]
+    if lib.fedml_fused_epilogue_num_params() != len(scalars):
+        raise RuntimeError("fused_epilogue: the kernel's scalar count "
+                           "differs from the wrapper's")
+    host = (ctypes.c_float * len(scalars))(*scalars)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.fedml_fused_epilogue(
+        stacked.data_ptr(), ld, weights.data_ptr(), c, global_flat.data_ptr(),
+        out.data_ptr(), m.data_ptr() if m is not None else None,
+        v.data_ptr() if v is not None else None, p, _OPT_CODES[spec.opt],
+        x_code, g_code, ctypes.addressof(host), _device_index(stacked),
+        stream)
+    _check_launch(rc, lib, "fused_epilogue")
+    LAUNCHES[f"fused_epilogue.{spec.opt}"] += 1
+    return out, _new_state(spec.opt, opt_state, st.t)

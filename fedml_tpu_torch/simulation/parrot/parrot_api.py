@@ -1,8 +1,8 @@
 """Parrot — federated simulation on one device.
 
 Port of ``fedml_tpu/simulation/parrot/parrot_api.py``: ``bucket_plan``, the
-FedAvg arm of ``build_aggregate`` and ``ParrotAPI``'s per-round path — the
-uniform round and the size-bucketed round.
+FedAvg and FedOpt arms of ``build_aggregate`` and ``ParrotAPI``'s per-round
+path — the uniform round and the size-bucketed round.
 
 A round here:
 
@@ -12,9 +12,13 @@ A round here:
 * trains the sampled clients one after another — the JAX package vmaps
   them, and with one client per stratum (the north-star config) a loop
   computes the same thing — each into row ``c`` of a stacked ``[C, D]``
-  buffer per dtype (``FlatVariables``);
-* reduces the stacked buffers with the weighted-reduce kernel, one launch
-  per dtype, weighted by each client's full sample count.
+  buffer per dtype (``FlatVariables``: parameters first, then the BatchNorm
+  statistics);
+* aggregates the stacked buffers, weighted by each client's full sample
+  count: FedAvg reduces each with the weighted-reduce kernel, one launch
+  per dtype; FedOpt runs the server step on the parameter columns with the
+  fused-epilogue kernel and reduces the statistics columns with the
+  weighted-reduce kernel, two launches per dtype (``build_aggregate``).
 
 Deviation from the reference: the bucketed round draws its clients and its
 window starts with a seeded ``torch.Generator`` (``seed + 17``), where the
@@ -23,7 +27,8 @@ JAX package draws them with ``jax.random``; the distribution is the same
 client's size), the draws are not.  The uniform round's
 ``np.random.seed(round)`` draw is the reference's, exactly.
 
-Not ported yet: the fused multi-round scan, the AOT cache and compile-ahead,
+Not ported yet: the SCAFFOLD/FedDyn/FedNova/Mime/FedProx arms, robust
+aggregation, the fused multi-round scan, the AOT cache and compile-ahead,
 mesh/remesh/resize, checkpoint-resume and the flight recorder.
 """
 
@@ -36,7 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...constants import FED_OPT_FEDAVG
+from ...constants import FED_OPT_FEDAVG, FED_OPT_FEDOPT
 from ...ml.aggregator.agg_operator import agg_stacked
 from ...ml.engine.device import get_device
 from ...ml.engine.local_update import (
@@ -45,6 +50,17 @@ from ...ml.engine.local_update import (
     make_batches,
 )
 from ...ml.engine.model_bundle import FlatVariables
+from ...ml.engine.optimizers import (
+    ServerOptimizer,
+    apply_updates,
+    build_server_optimizer,
+)
+from ...ops.epilogue import (
+    fused_epilogue,
+    init_opt_state,
+    spec_from_args,
+    weighted_reduce,
+)
 from ...utils.weights import from_flax_variables, to_flax_variables
 
 
@@ -101,30 +117,81 @@ def bucket_plan(sizes: np.ndarray, k: int, bs: int, n_buckets: int,
     return plan
 
 
-def build_aggregate(args: Any, algo: str, n_total: int):
-    """Post-training logic of a round: the weighted aggregation and the
-    round metrics, on stacked per-client outputs.  Only the FedAvg arm is
-    ported; robust aggregation and the FedOpt/SCAFFOLD/FedDyn/FedNova/Mime
-    arms raise."""
-    if algo != FED_OPT_FEDAVG:
+def build_aggregate(args: Any, algo: str, n_total: int,
+                    flat_vars: FlatVariables,
+                    server_tx: Optional[ServerOptimizer] = None):
+    """Post-training logic of a round: the weighted aggregation, FedOpt's
+    server step and the round metrics, on stacked per-client outputs.  The
+    FedAvg and FedOpt arms are ported; robust aggregation and the
+    SCAFFOLD/FedDyn/FedNova/Mime arms raise.
+
+    FedOpt has two arms, as in the JAX package:
+
+    * fused, when the server optimizer maps onto a channel of the fused
+      epilogue (``spec_from_args``: adam, sgd with or without momentum):
+      per dtype group, the parameter columns ``[0, P)`` of the stacked
+      ``[C, D]`` buffer go through ``fused_epilogue`` — reduce →
+      pseudo-gradient → optimizer → cast in one launch — and the BatchNorm
+      columns ``[P, D)`` through ``weighted_reduce``, both written into the
+      new global's buffer: two launches, and no slice is copied;
+    * unfused (yogi, adagrad, or ``fused_epilogue: false``): ``agg_stacked``,
+      then ``server_tx`` on the pseudo-gradient ``global − aggregate`` of
+      the parameter columns.
+
+    In both, the BatchNorm statistics take the plain weighted mean."""
+    if algo not in (FED_OPT_FEDAVG, FED_OPT_FEDOPT):
         raise NotImplementedError(
             f"Parrot aggregation for {algo!r} is not ported yet; the port "
-            f"runs {FED_OPT_FEDAVG}")
+            f"runs {FED_OPT_FEDAVG} and {FED_OPT_FEDOPT}")
     if getattr(args, "robust_agg", None):
         raise NotImplementedError("robust_agg is not ported yet")
+    fused_opt = spec_from_args(args) if algo == FED_OPT_FEDOPT else None
 
-    def aggregate(new_vars: Dict[torch.dtype, torch.Tensor],
+    def server_step(global_vars, opt_state, new_vars, weights):
+        if fused_opt is None:
+            agg_vars = agg_stacked(new_vars, weights)
+            for dt in opt_state:
+                cols = flat_vars.params_range(dt)
+                g = global_vars[dt][cols]
+                updates, opt_state[dt] = server_tx.update(
+                    g - agg_vars[dt][cols], opt_state[dt])
+                agg_vars[dt][cols] = apply_updates(g, updates)
+            return agg_vars
+        agg_vars = {}
+        for dt, x in new_vars.items():
+            if dt not in opt_state:
+                agg_vars[dt] = weighted_reduce(x, weights)
+                continue
+            out = torch.empty_like(global_vars[dt])
+            cols, stats = flat_vars.params_range(dt), flat_vars.stats_range(dt)
+            _, opt_state[dt] = fused_epilogue(
+                global_vars[dt][cols], x[:, cols], weights, 1.0, fused_opt,
+                opt_state[dt], out=out[cols])
+            if stats.start < stats.stop:
+                weighted_reduce(x[:, stats], weights, out=out[stats])
+            agg_vars[dt] = out
+        return agg_vars
+
+    def aggregate(global_vars: Dict[torch.dtype, torch.Tensor],
+                  server_state: Dict[str, Any],
+                  new_vars: Dict[torch.dtype, torch.Tensor],
                   metrics: Dict[str, torch.Tensor], weights: torch.Tensor
-                  ) -> Tuple[Dict[torch.dtype, torch.Tensor],
+                  ) -> Tuple[Dict[torch.dtype, torch.Tensor], Dict[str, Any],
                              Dict[str, torch.Tensor]]:
-        agg_vars = agg_stacked(new_vars, weights)
+        new_state = dict(server_state)
+        if algo == FED_OPT_FEDOPT:
+            new_state["opt_state"] = dict(server_state["opt_state"])
+            agg_vars = server_step(global_vars, new_state["opt_state"],
+                                   new_vars, weights)
+        else:
+            agg_vars = agg_stacked(new_vars, weights)
         wsum = torch.clamp(weights.sum(), min=1e-12)
         round_metrics = {
             "train_loss": (metrics["train_loss"] * weights).sum() / wsum,
             "train_acc": (metrics["train_acc"] * weights).sum() / wsum,
             "samples": weights.sum(),
         }
-        return agg_vars, round_metrics
+        return agg_vars, new_state, round_metrics
 
     return aggregate
 
@@ -180,7 +247,24 @@ class ParrotAPI:
         self.global_vars = self.vars.snapshot()
         self.local_update = build_local_update(bundle, args)
         self.eval_step = build_eval_step(bundle)
-        self.aggregate = build_aggregate(args, self.algo, self.n_total)
+
+        # ---- server state: FedOpt's optimizer state per dtype group, over
+        # its parameter columns — the fused epilogue's {m, v, t} when the
+        # server optimizer maps onto a channel, optax's state otherwise
+        self.server_state: Dict[str, Any] = {}
+        self.server_tx: Optional[ServerOptimizer] = None
+        if self.algo == FED_OPT_FEDOPT:
+            spec = spec_from_args(args)
+            if spec is None:
+                self.server_tx = build_server_optimizer(args)
+            opt_state = {}
+            for dt in self.vars.param_dtypes():
+                p = self.global_vars[dt][self.vars.params_range(dt)]
+                opt_state[dt] = (init_opt_state(p, spec) if spec is not None
+                                 else self.server_tx.init(p))
+            self.server_state["opt_state"] = opt_state
+        self.aggregate = build_aggregate(args, self.algo, self.n_total,
+                                         self.vars, self.server_tx)
 
         self._build_buckets()
         n_round = (sum(b["k"] for b in self.buckets) if self.buckets
@@ -325,7 +409,8 @@ class ParrotAPI:
         ids = torch.cat([ids for _, ids in parts]).to(self.device)
         metrics = {k: torch.stack([m[k] for m in per_client])
                    for k in ("train_loss", "train_acc", "n_samples")}
-        self.global_vars, rm = self.aggregate(
+        self.global_vars, self.server_state, rm = self.aggregate(
+            self.global_vars, self.server_state,
             {dt: s[:c] for dt, s in self.stacked.items()}, metrics,
             self.n_samples[ids])
         rm["samples_trained"] = metrics["n_samples"].sum()

@@ -10,16 +10,26 @@ carry the same names (``models/cv.py``), so a leaf maps by path and layout:
   ``batch_stats/.../mean``/``var`` ↔ ``running_mean``/``running_var``.
 
 Trees cross as numpy arrays, so neither side imports the other.
+
+FedOpt's server state crosses the same way (``opt_state_from_jax`` and
+``opt_state_to_jax``).  The JAX package keeps it as trees shaped like
+``params``: the fused epilogue's ``{"m", "v", "t"}`` (``m`` alone for
+momentum, None for sgd), or optax's state on the unfused arm (a tuple of
+named tuples: ``count``/``mu``/``nu``, ``sum_of_squares`` or ``trace``).
+The port keeps it per dtype group of ``FlatVariables``, over that group's
+parameter columns: ``{dtype: {"m": [P], "v": [P], "t": int}}``, or optax's
+field names with flat ``[P]`` tensors and an int ``count``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..ml.engine.model_bundle import FlatVariables
 from ..models.cv import BatchNorm, Conv, Dense
 
 # (module type, torch leaf) → (collection, flax leaf, torch→flax, flax→torch)
@@ -37,8 +47,8 @@ _MAP = {
 
 
 def _leaf_map(model: nn.Module):
-    """Yield (tensor, collection, flax path, torch→flax, flax→torch) for
-    every parameter and buffer of ``model``."""
+    """Yield (name, tensor, collection, flax path, torch→flax, flax→torch)
+    for every parameter and buffer of ``model``."""
     named = list(model.named_parameters()) + list(model.named_buffers())
     for name, t in named:
         prefix, _, leaf = name.rpartition(".")
@@ -49,7 +59,7 @@ def _leaf_map(model: nn.Module):
                            f"({type(owner).__name__})")
         coll, flax_leaf, to_flax, from_flax = entry
         path = tuple(prefix.split(".")) if prefix else ()
-        yield t, coll, path + (flax_leaf,), to_flax, from_flax
+        yield name, t, coll, path + (flax_leaf,), to_flax, from_flax
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Any:
@@ -64,36 +74,132 @@ def _count_leaves(tree: Any) -> int:
     return 1
 
 
+def _read_tree(np_tree: Dict[str, Any], leaves) -> Iterator[Tuple[Any,
+                                                                  torch.Tensor]]:
+    """Yield ``(target, tensor)``: for each ``(target, shape, flax path,
+    flax→torch)`` of ``leaves``, the leaf of ``np_tree`` at that path in the
+    torch layout, as float32.  Raises on a misshapen leaf."""
+    for target, shape, path, from_flax in leaves:
+        a = np.array(_get(np_tree, path), np.float32)
+        if from_flax is not None:
+            a = from_flax(a)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{'/'.join(path)}: flax shape {a.shape} does "
+                             f"not fit {tuple(shape)}")
+        yield target, torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _build_tree(leaves) -> Dict[str, Any]:
+    """The nested flax tree, with float32 numpy leaves in the flax layouts,
+    of ``leaves``: ``(tensor in the torch layout, flax path, torch→flax)``."""
+    out: Dict[str, Any] = {}
+    for t, path, to_flax in leaves:
+        a = t.detach().float().cpu().numpy()
+        if to_flax is not None:
+            a = to_flax(a)
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return out
+
+
 def from_flax_variables(np_tree: Dict[str, Any], model: nn.Module) -> None:
     """Copy a JAX variables tree (numpy leaves) into ``model`` in place —
     into whatever storage the module's tensors are, flat views included.
     Raises on a missing, extra or misshapen leaf."""
-    n = 0
+    leaves = [(t, t.shape, (coll,) + path, from_flax)
+              for _, t, coll, path, _, from_flax in _leaf_map(model)]
     with torch.no_grad():
-        for t, coll, path, _, from_flax in _leaf_map(model):
-            a = np.array(_get(np_tree[coll], path), np.float32)
-            if from_flax is not None:
-                a = from_flax(a)
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{coll}/{'/'.join(path)}: flax shape "
-                                 f"{a.shape} does not fit {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-            n += 1
+        for t, a in _read_tree(np_tree, leaves):
+            t.copy_(a)
     total = sum(_count_leaves(v) for v in np_tree.values())
-    if total != n:
-        raise ValueError(f"flax tree has {total} leaves, the model {n}")
+    if total != len(leaves):
+        raise ValueError(f"flax tree has {total} leaves, the model "
+                         f"{len(leaves)}")
 
 
 def to_flax_variables(model: nn.Module) -> Dict[str, Any]:
     """The inverse: ``{"params": ..., "batch_stats": ...}`` with float32
     numpy leaves in the flax layouts."""
+    return _build_tree((t, (coll,) + path, to_flax)
+                       for _, t, coll, path, to_flax, _ in _leaf_map(model))
+
+
+# ------------------------------------------------------- FedOpt server state
+def _param_leaves(flat_vars: FlatVariables):
+    """Yield (layout leaf, flax path, torch→flax, flax→torch) for every
+    parameter of ``flat_vars``' module."""
+    places = {leaf.name: leaf for leaf in flat_vars.layout}
+    for name, _, coll, path, to_flax, from_flax in _leaf_map(
+            flat_vars.module):
+        if coll == "params":
+            yield places[name], path, to_flax, from_flax
+
+
+def flat_from_flax_params(np_tree: Dict[str, Any], flat_vars: FlatVariables,
+                          device: Any = "cpu") -> Dict[torch.dtype,
+                                                       torch.Tensor]:
+    """A tree shaped like the JAX ``params`` (numpy leaves) as float32
+    tensors over each dtype group's parameter columns ``[0, P)``."""
+    out = {dt: torch.zeros(flat_vars.param_cols[dt], dtype=torch.float32,
+                           device=device)
+           for dt in flat_vars.param_dtypes()}
+    for leaf, a in _read_tree(np_tree, (
+            (leaf, leaf.shape, path, from_flax)
+            for leaf, path, _, from_flax in _param_leaves(flat_vars))):
+        out[leaf.dtype][leaf.offset:leaf.offset + leaf.numel] = a.reshape(-1)
+    return out
+
+
+def flax_params_from_flat(flat: Dict[torch.dtype, torch.Tensor],
+                          flat_vars: FlatVariables) -> Dict[str, Any]:
+    """The inverse: float32 numpy leaves in the flax layouts."""
+    return _build_tree(
+        (flat[leaf.dtype][leaf.offset:leaf.offset + leaf.numel]
+         .reshape(leaf.shape), path, to_flax)
+        for leaf, path, to_flax, _ in _param_leaves(flat_vars))
+
+
+def opt_state_from_jax(np_state: Any, flat_vars: FlatVariables,
+                       device: Any = "cpu") -> Dict[torch.dtype, Any]:
+    """The JAX package's FedOpt server state (numpy leaves) as the port's,
+    per dtype group.  Takes the fused epilogue's dict or None, and optax's
+    state (any tuple of named tuples)."""
+    dtypes = flat_vars.param_dtypes()
+    if np_state is None:
+        return {dt: None for dt in dtypes}
+    if isinstance(np_state, dict):
+        fields = dict(np_state)
+    else:
+        fields = {}
+        for part in np_state:
+            fields.update(part._asdict())
+    out: Dict[torch.dtype, Dict[str, Any]] = {dt: {} for dt in dtypes}
+    for key, val in fields.items():
+        if isinstance(val, dict):
+            flat = flat_from_flax_params(val, flat_vars, device)
+            for dt in dtypes:
+                out[dt][key] = flat[dt]
+        else:
+            for dt in dtypes:
+                out[dt][key] = int(np.asarray(val))
+    return out
+
+
+def opt_state_to_jax(state: Dict[torch.dtype, Any],
+                     flat_vars: FlatVariables) -> Any:
+    """The inverse, as a dict of numpy trees (``t``/``count`` as int32
+    scalars); None for a stateless channel."""
+    groups = [state[dt] for dt in flat_vars.param_dtypes()]
+    if not groups or groups[0] is None:
+        return None
     out: Dict[str, Any] = {}
-    for t, coll, path, to_flax, _ in _leaf_map(model):
-        a = t.detach().float().cpu().numpy()
-        if to_flax is not None:
-            a = to_flax(a)
-        node = out.setdefault(coll, {})
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+    for key, val in groups[0].items():
+        if isinstance(val, torch.Tensor):
+            out[key] = flax_params_from_flat(
+                {dt: state[dt][key] for dt in flat_vars.param_dtypes()},
+                flat_vars)
+        else:
+            out[key] = np.asarray(val, np.int32)
     return out

@@ -14,6 +14,7 @@ package's own float32 gradients on the CPU are off by up to 3e-3
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fedml_tpu.arguments import Config as JaxConfig
@@ -136,3 +137,31 @@ def test_make_batches_matches_jax():
     want = jax_lu.make_batches(x, y, BS, NB)
     for k in ("x", "y", "mask"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+def test_fedopt_trains_as_fedavg():
+    """FedOpt's clients run FedAvg's plain local SGD (the server step is
+    all that differs): the same variables and metrics, bit for bit."""
+    np_vars = _np_vars()
+    x, y = _client(3)
+    batches = lu.make_batches(x, y, BS, NB)
+    out = {}
+    for algo in ("FedAvg", "FedOpt"):
+        bundle, flat = _port_setup(np_vars)
+        cfg = _cfg(Config)
+        cfg.federated_optimizer = algo
+        m = lu.build_local_update(bundle, cfg)(flat, batches)
+        out[algo] = (flat.snapshot(), m)
+    for dt, f in out["FedAvg"][0].items():
+        assert torch.equal(out["FedOpt"][0][dt], f)
+    for k in ("train_loss", "train_acc", "n_samples"):
+        assert torch.equal(out["FedOpt"][1][k], out["FedAvg"][1][k])
+
+
+def test_unported_algorithms_raise():
+    bundle, _ = _port_setup(_np_vars())
+    for algo in ("FedProx", "SCAFFOLD", "FedNova"):
+        cfg = _cfg(Config)
+        cfg.federated_optimizer = algo
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            lu.build_local_update(bundle, cfg)
