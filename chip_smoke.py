@@ -16,13 +16,19 @@ raises and ends the run with a non-zero exit:
 3. kernels — each kernel against its plain PyTorch version on the card, on
    the unit-test cases and at the main paths' shapes, with the tolerance:
    the weighted reduce (also on a column range), the four channels of the
-   fused epilogue, and the async ``fold_buffer`` (its ``none`` channel);
-4. timing — at the rounds' shape, each kernel, its plain version and, where
+   fused epilogue, the async ``fold_buffer`` (its ``none`` channel), and
+   the flash-attention forward (o, l and m; causal and not, T of 80, 200
+   and 512, head dims 32, 64 and 128, float32 and bfloat16, and keys of
+   another length than the queries);
+4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
    could take;
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
-   and FedOpt with server adam, sgd with momentum 0.9 and sgd without;
+   and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
+   a ResNet-8; and FedOpt (server adam) on the transformer language model
+   at dropout 0, whose training runs the flash kernel forward and the
+   blockwise backward;
 6. main path, FedAvg — the north-star config of ``bench.py`` (Parrot
    FedAvg, ResNet-56 at full width in bfloat16, 100 clients split
    Dirichlet(0.5), 10 per round in 10 size strata capped at 0.8, batch 32,
@@ -32,11 +38,18 @@ raises and ends the run with a non-zero exit:
    FedOpt`` (server adam at ``server_lr`` 1e-3, the JAX defaults);
 8. trace — one client of the FedOpt path's round under ``torch.profiler``:
    the device's busy share of its wall time, the kernels launched per
-   batch and the ones that take the device time.
+   batch and the ones that take the device time;
+9. main path, FedOpt on BERT-tiny — the BASELINE config 3 (Parrot FedOpt,
+   server adam at ``server_lr`` 0.1, lr 0.05, ``TinyTransformerLM`` at
+   full width in bfloat16 with dropout 0.1, ``fed_shakespeare``, 100
+   clients split Dirichlet(0.5) by first token, 10 per round, batch 32) for
+   3 rounds on 20,000 train and 4,000 test sequences of 80 tokens, with a
+   token-accuracy eval every round: the eval passes run the flash kernel;
+10. trace — one client of that path's round, as phase 8.
 
-Every path (the fold in phase 3, the card rounds of phase 5, phases 6 and
-7) is driven with the kernels' launch counts set to 0 just before it and
-read just after.  Then one JSON line of per-kernel numbers and, last, the
+Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7
+and 9) is driven with the kernels' launch counts set to 0 just before it
+and read just after.  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,14 +70,20 @@ import torch
 import fedml_tpu_torch
 from fedml_tpu_torch import FedMLRunner
 from fedml_tpu_torch.ml.aggregator.agg_operator import fold_buffer
-from fedml_tpu_torch.ml.engine.model_bundle import FlatVariables, ModelBundle
+from fedml_tpu_torch.ml.engine.model_bundle import (
+    TASK_LM,
+    FlatVariables,
+    ModelBundle,
+)
 from fedml_tpu_torch.models.cv import CIFARResNet
+from fedml_tpu_torch.models.nlp import TinyTransformerLM
 from fedml_tpu_torch.ops import cuda_build, epilogue
+from fedml_tpu_torch.ops import pallas_attention as attn
 from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 8
+PHASES = 10
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -79,6 +98,17 @@ MAIN_CONFIG = dict(
 #: FedOpt with the JAX package's server defaults (arguments.py: adam, 1e-3)
 FEDOPT = dict(federated_optimizer="FedOpt", server_optimizer="adam",
               server_lr=1e-3)
+#: BASELINE config 3 (tests/test_baseline_configs.py:40-50) at the size of
+#: a real run: 100 clients, 20,000 train and 4,000 test sequences of 80
+LM_CONFIG = dict(
+    dataset="fed_shakespeare", model="bert_tiny", training_type="simulation",
+    backend="parrot", partition_method="hetero", partition_alpha=0.5,
+    client_num_in_total=100, client_num_per_round=10, comm_round=ROUNDS,
+    epochs=1, batch_size=32, learning_rate=0.05, frequency_of_the_test=1,
+    enable_tracking=False, compute_dtype="bfloat16", data_scale=10,
+    random_seed=0, federated_optimizer="FedOpt", server_optimizer="adam",
+    server_lr=0.1,
+    data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_lm"))
 
 EPI = "fedml_tpu_torch/csrc/fused_epilogue.cu"
 #: the paths' kernels: (name, source, the TPU kernel it replaces, channel)
@@ -90,6 +120,8 @@ KERNELS = [
     ("fused_epilogue.momentum", EPI, "fedml_tpu/ops/epilogue.py:173",
      "momentum"),
     ("fused_epilogue.adam", EPI, "fedml_tpu/ops/epilogue.py:183", "adam"),
+    ("flash_attention", "fedml_tpu_torch/csrc/flash_attention.cu",
+     "fedml_tpu/ops/pallas_attention.py:111", None),
 ]
 CHANNELS = ("none", "sgd", "momentum", "adam")
 # (atol, rtol): float32 sums in another order — the fused channels round
@@ -109,29 +141,31 @@ def check(cond, msg):
 
 
 def reset_launches():
-    for k in epilogue.LAUNCHES:
-        epilogue.LAUNCHES[k] = 0
+    for counts in (epilogue.LAUNCHES, attn.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_launches():
     """The launch counts, with ``fused_epilogue`` the sum of its channels."""
-    counts = dict(epilogue.LAUNCHES)
+    counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES)
     counts["fused_epilogue"] = sum(
         n for k, n in counts.items() if k.startswith("fused_epilogue."))
     return counts
 
 
 def card_peaks(name):
-    """(bytes/s, float32 FLOP/s outside the tensor cores) of the card, from
-    NVIDIA's data sheets, at the full power limit."""
+    """(bytes/s, float32 FLOP/s outside the tensor cores, dense bfloat16
+    tensor-core FLOP/s) of the card, from NVIDIA's data sheets, at the full
+    power limit."""
     if "H200" in name:
-        return 4.8e12, 67e12
+        return 4.8e12, 67e12, 989e12
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
+        return 3.9e12, 60e12, 835e12
     if "H100" in name:
-        return 3.35e12, 67e12
+        return 3.35e12, 67e12, 989e12
     raise RuntimeError(f"no peak figures for {name!r}")
 
 
@@ -153,7 +187,7 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    names = ["weighted_reduce", "fused_epilogue"]
+    names = ["weighted_reduce", "fused_epilogue", "flash_attention"]
     paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
     phase(2, "build", f"{len(paths)} kernel sources built from "
@@ -354,6 +388,81 @@ def kernel_phase(dev):
     return p_main, d_main, max_err, fold_launches
 
 
+#: (atol, rtol) of the flash kernel against its plain version: float32
+#: sums in another order (the kernel's FMAs over key tiles against cuBLAS
+#: products), the JAX package's own tolerance for its kernel; a bfloat16 o
+#: at one to two bfloat16 steps, after rounding float32 values that differ
+#: in their last bits
+FLASH_F32_TOL = (2e-5, 2e-5)
+FLASH_BF16_TOL = (1e-2, 1e-2)
+#: the eval pass of the BERT-tiny path: batch 32, 2 heads, 80 tokens, head
+#: dim 64, bfloat16, causal; and one at max_len, batch 8
+LM_EVAL_SHAPE = (32, 2, 80, 64)
+LM_LONG_SHAPE = (8, 2, 512, 64)
+
+
+def _flash_qkv(b, h, t, d, dtype, gen, dev, tk=None):
+    """q [b, h, t, d] and k, v [b, h, tk, d] as the model hands them to the
+    kernel: [B, T, H, D] projections viewed as [B, H, T, D]."""
+    return [torch.randn(b, n, h, d, generator=gen).to(dtype).to(dev)
+            .transpose(1, 2) for n in (t, tk or t, tk or t)]
+
+
+def _flash_err(q, k, v, causal, t_valid, label):
+    got = attn.flash_attention_residuals(q, k, v, causal, t_valid)
+    torch.cuda.synchronize()
+    ref = attn._reference_residuals(q, k, v, causal, t_valid)
+    return max(_err(g, r, FLASH_BF16_TOL if (name == "o" and q.dtype ==
+                                             torch.bfloat16)
+                    else FLASH_F32_TOL, f"flash_attention {label} {name}")
+               for g, r, name in zip(got, ref, "olm"))
+
+
+def flash_kernel_phase(dev):
+    """Kernel B12 against ``_reference_residuals`` on o, l and m: causal and
+    not, T of 80, 200 and 512, head dims 32, 64 and 128, float32 and
+    bfloat16; T = 200 also padded to 256 with ``t_valid`` 200, as
+    ``flash_attention`` pads it; keys of another length (160, and a ragged
+    37) for 80 queries; rows that do not start 16-byte aligned; and the
+    BERT-tiny path's eval shape."""
+    gen = torch.Generator().manual_seed(2)
+    errs = {}
+    for causal in (True, False):
+        for t in (80, 200, 512):
+            for d in attn.HEAD_DIMS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    label = (f"{'causal' if causal else 'full'}_T{t}_D{d}_"
+                             f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+                    q, k, v = _flash_qkv(2, 2, t, d, dtype, gen, dev)
+                    errs[label] = _flash_err(q, k, v, causal, t, label)
+        q, k, v = _flash_qkv(2, 2, 256, 64, torch.float32, gen, dev)
+        label = f"{'causal' if causal else 'full'}_T256_t_valid200_f32"
+        errs[label] = _flash_err(q, k, v, causal, 200, label)
+    for tk in (160, 37):
+        q, k, v = _flash_qkv(3, 2, 80, 64, torch.float32, gen, dev, tk=tk)
+        errs[f"full_T80_Tk{tk}"] = _flash_err(q, k, v, False, tk,
+                                              f"Tk {tk}")
+    # rows not 16-byte aligned: the wrapper copies them for the tile loads
+    q, k, v = (x[..., 1:] for x in _flash_qkv(2, 2, 80, 65, torch.bfloat16,
+                                              gen, dev))
+    errs["causal_T80_misaligned_bf16"] = _flash_err(q, k, v, True, 80,
+                                                    "misaligned rows")
+    q, k, v = _flash_qkv(*LM_EVAL_SHAPE, torch.bfloat16, gen, dev)
+    main = _flash_err(q, k, v, True, LM_EVAL_SHAPE[2], "eval shape")
+    worst = {dt: max(e for k_, e in errs.items() if k_.endswith(dt))
+             for dt in ("f32", "bf16")}
+    phase(3, "kernels", f"flash_attention vs plain version, max |err| over "
+          f"o, l, m: {len(errs)} cases (causal and full, T 80/200/512, D "
+          f"{'/'.join(map(str, attn.HEAD_DIMS))}, f32 and bf16, T 256 at "
+          f"t_valid 200, Tk 160 and 37 for T 80, misaligned rows): worst f32 "
+          f"{worst['f32']:.2e}, worst bf16 {worst['bf16']:.2e}, Tk cases "
+          f"{errs['full_T80_Tk160']:.2e} / {errs['full_T80_Tk37']:.2e}; "
+          f"eval shape {list(LM_EVAL_SHAPE)} bf16 causal {main:.2e} "
+          f"(tolerance atol+rtol·|ref|: f32 and l, m {FLASH_F32_TOL}, bf16 o "
+          f"{FLASH_BF16_TOL})")
+    return main
+
+
 def _time_ms(fn, flush, n=50, warmup=5):
     """Median device time of ``fn`` over ``n`` calls, each on a cold L2:
     a 256 MB write precedes every call (the round's reduce reads client
@@ -377,8 +486,12 @@ def _time_ms(fn, flush, n=50, warmup=5):
 CHANNEL_OPS = {"none": 3, "sgd": 4, "momentum": 6, "adam": 16}
 
 
-def _bound(nbytes, ops, card):
-    bw, flops = card_peaks(card)
+def _bound(nbytes, ops, card, peak="f32"):
+    """The least time in ms for ``nbytes`` at the memory rate and ``ops``
+    at the card's float32 (``peak="f32"``) or dense bfloat16 tensor-core
+    (``"bf16"``) rate, and which of the two it is."""
+    bw, f32, bf16 = card_peaks(card)
+    flops = bf16 if peak == "bf16" else f32
     t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -473,6 +586,57 @@ def timing_phase(dev, p_main, d_main, card):
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "
               f"{bound_ms / ms:.1%} of the bound")
     return out
+
+
+def flash_timing_phase(dev, card):
+    """Kernel B12 at the BERT-tiny path's eval shape and at max_len, bf16,
+    causal, on the model's [B, T, H, D] views; its plain version; and
+    ``scaled_dot_product_attention(q, k, v, is_causal=True)``, timed only.
+    The bound: q, k, v read and o, l, m written once, against the causal
+    half of both products (2·D·T·(T+1) operations per head, the diagonal
+    included) at the dense bfloat16 tensor-core rate."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    gen = torch.Generator().manual_seed(4)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = {}
+    for shape in (LM_EVAL_SHAPE, LM_LONG_SHAPE):
+        b, h, t, d = shape
+        q, k, v = _flash_qkv(b, h, t, d, torch.bfloat16, gen, dev)
+
+        def kernel():
+            attn.flash_attention_residuals(q, k, v, True)
+
+        def plain():
+            attn._reference_residuals(q, k, v, True)
+
+        def library():
+            return scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        lib_err = _err(library(), attn._reference(q, k, v, True),
+                       FLASH_BF16_TOL, "scaled_dot_product_attention")
+        p1 = _time_ms(plain, flush)
+        k1 = _time_ms(kernel, flush)
+        lib_ms = _time_ms(library, flush)
+        k2 = _time_ms(kernel, flush)
+        p2 = _time_ms(plain, flush)
+        nbytes = 4 * b * h * t * d * 2 + 2 * b * h * t * 4
+        ops = 2 * b * h * d * t * (t + 1)
+        bound_ms, bound_by = _bound(nbytes, ops, card, peak="bf16")
+        ms = statistics.median([k1, k2])
+        rows[shape] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                           library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        phase(4, "timing", f"flash_attention at {list(shape)} bf16 causal "
+              f"([B, T, H, D] views), cold L2, median of 50: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+              f"library scaled_dot_product_attention {lib_ms:.4f} ms (vs "
+              f"plain max |err| {lib_err:.2e}), bound {bound_ms:.5f} ms "
+              f"({bound_by}: {nbytes / 1e6:.3f} MB at "
+              f"{card_peaks(card)[0] / 1e12:.2f} TB/s, {ops / 1e6:.1f} MFLOP "
+              f"at {card_peaks(card)[2] / 1e12:.0f} TFLOP/s dense bf16) -> "
+              f"{bound_ms / ms:.1%} of the bound")
+    return rows[LM_EVAL_SHAPE]
 
 
 def _small_round(device, **kw):
@@ -580,14 +744,73 @@ def parity_phase(dev):
     return launches
 
 
-def main_path_phase(n, label, **overrides):
+def _small_lm_round(device):
+    """One uniform Parrot FedOpt round (server adam at 0.1, the config-3
+    settings at 4 clients, batch 8) of the full-width ``TinyTransformerLM``
+    at dropout 0 in float32 on ``device``, from the same seeded
+    variables."""
+    args = fedml_tpu_torch.Config(
+        dataset="fed_shakespeare", backend="parrot", client_num_in_total=4,
+        client_num_per_round=4, comm_round=1, batch_size=8,
+        learning_rate=0.05, data_scale=0.05, compute_dtype="float32",
+        frequency_of_the_test=1, federated_optimizer="FedOpt",
+        server_optimizer="adam", server_lr=0.1,
+        data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_small"))
+    dataset = fedml_tpu_torch.data.load(args)
+    module = TinyTransformerLM(dropout=0.0,
+                               generator=torch.Generator().manual_seed(0))
+    api = ParrotAPI(args, device, dataset,
+                    ModelBundle(module, (80,), 90, task=TASK_LM,
+                                input_dtype=torch.int32))
+    final = api.train()
+    return api.global_flax_variables(), final, api
+
+
+def lm_parity_phase(dev):
+    """Card vs CPU, one FedOpt round of the transformer at dropout 0: its
+    training runs the flash kernel forward and the blockwise backward on
+    the card, the plain forward and the same backward on the CPU.  Adam is
+    held as in ``parity_phase``: every parameter within 2·server_lr, and at
+    least 99 % within 1e-5."""
+    reset_launches()
+    gpu_vars, gpu_m, api = _small_lm_round(dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cpu_vars, cpu_m, _ = _small_lm_round(torch.device("cpu"))
+    check(launches["flash_attention"] > 0
+          and launches["fused_epilogue.adam"] == 1
+          and launches["weighted_reduce"] == 0,
+          f"transformer FedOpt round launched {launches}")
+    d = np.abs(_flat_tree(gpu_vars, "params") - _flat_tree(cpu_vars,
+                                                           "params"))
+    close = float(np.mean(d <= 1e-5))
+    check(d.max() <= 2 * 0.1 and close >= 0.99,
+          f"transformer round: card vs CPU max |Δparams| {d.max():.3g}, "
+          f"{close:.2%} within 1e-5")
+    dl = abs(gpu_m["train_loss"] - cpu_m["train_loss"])
+    check(dl <= 1e-4 * max(1.0, abs(cpu_m["train_loss"])),
+          f"transformer round: train_loss {gpu_m['train_loss']} vs "
+          f"{cpu_m['train_loss']}")
+    phase(5, "parity", f"TinyTransformerLM f32 dropout 0 round, FedOpt "
+          f"adam 0.1, card vs CPU: max |Δparams| {d.max():.2e}, "
+          f"{close:.3%} of params within 1e-5, train_loss "
+          f"{gpu_m['train_loss']:.6f} vs {cpu_m['train_loss']:.6f}, token "
+          f"test_acc {gpu_m['test_acc']:.4f} vs {cpu_m['test_acc']:.4f}; "
+          f"card launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return launches
+
+
+def _drive(config, unit="samples"):
+    """Run ``config`` through ``init → device → data → model →
+    FedMLRunner(...).run()`` with the launch counts set to 0 just before
+    and read just after; check the rounds, the globals and test_acc."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
-        **dict(MAIN_CONFIG, **overrides)))
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(**config))
     device = fedml_tpu_torch.device.get_device(args)
     dataset = fedml_tpu_torch.data.load(args)
     t_data = time.perf_counter() - t0
@@ -605,7 +828,7 @@ def main_path_phase(n, label, **overrides):
     for r in hist:
         print(f"    round {r['round']}: train_loss {r['train_loss']:.6f}, "
               f"{r['train_seconds']:.3f} s, {r['samples_trained']:.0f} "
-              f"samples trained", flush=True)
+              f"{unit} trained", flush=True)
         check(math.isfinite(r["train_loss"]),
               f"round {r['round']}: train_loss {r['train_loss']}")
     secs = sum(r["train_seconds"] for r in hist)
@@ -620,6 +843,15 @@ def main_path_phase(n, label, **overrides):
           "non-finite global variables")
     check(math.isfinite(final["test_acc"]) and 0 <= final["test_acc"] <= 1,
           f"test_acc {final['test_acc']}")
+    return dict(args=args, api=api, final=final, launches=launches,
+                secs=secs, steady=len(steady) / steady_secs, samples=samples,
+                t_data=t_data, total=total,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def main_path_phase(n, label, **overrides):
+    run = _drive(dict(MAIN_CONFIG, **overrides))
+    api, launches, final = run["api"], run["launches"], run["final"]
     groups = len(api.global_vars)
     fedopt = api.algo == "FedOpt"
     want_fused = ROUNDS * len(api.vars.param_dtypes()) if fedopt else 0
@@ -637,64 +869,125 @@ def main_path_phase(n, label, **overrides):
         extra = (f", adam t {ts}, server step = fused_epilogue over columns "
                  f"[0, {cols.start}) + weighted_reduce over "
                  f"[{cols.start}, {cols.stop})")
-    peak = torch.cuda.max_memory_allocated()
+    args = run["args"]
     phase(n, "main path", f"Parrot {label} {args.model} {args.compute_dtype}"
           f", {api.n_total} clients, {api.n_buckets} strata, {ROUNDS} rounds: "
-          f"{ROUNDS / secs:.3f} rounds/s over all rounds "
-          f"({len(steady) / steady_secs:.3f} after round 0), "
-          f"{samples / secs:.1f} samples/s, final test_acc "
+          f"{ROUNDS / run['secs']:.3f} rounds/s over all rounds "
+          f"({run['steady']:.3f} after round 0), "
+          f"{run['samples'] / run['secs']:.1f} samples/s, final test_acc "
           f"{final['test_acc']:.4f} test_loss {final['test_loss']:.4f}, "
-          f"peak memory {peak / 2**30:.2f} GiB, launches "
+          f"peak memory {run['peak'] / 2**30:.2f} GiB, launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-          + f"{extra}, data {t_data:.1f} s, whole phase {total:.1f} s")
+          + f"{extra}, data {run['t_data']:.1f} s, whole phase "
+          f"{run['total']:.1f} s")
     return launches, api
 
 
-def trace_phase(api):
-    """One client of the middle size stratum, trained and aggregated by the
-    main path's round code, timed once plainly and once under
+def lm_main_path_phase(n):
+    """BASELINE config 3 at full width: every eval batch launches the flash
+    kernel once per block, training (dropout 0.1) takes the plain attention,
+    and each round's server step is one fused adam launch (no BatchNorm
+    columns, so no weighted reduce)."""
+    run = _drive(LM_CONFIG, unit="tokens")
+    api, launches, final = run["api"], run["launches"], run["final"]
+    n_test = int(api.test_num)
+    evals = len(api.metrics_history)
+    want_flash = 2 * (-(-n_test // api.bs)) * evals
+    check(evals == ROUNDS and launches["flash_attention"] == want_flash
+          and launches["fused_epilogue.adam"] == ROUNDS
+          and launches["fused_epilogue"] == ROUNDS
+          and launches["weighted_reduce"] == 0,
+          f"{ROUNDS} rounds with {evals} evals of {n_test} sequences "
+          f"launched {launches}; want flash_attention {want_flash}")
+    ts = [st["t"] for st in api.server_state["opt_state"].values()]
+    check(ts == [ROUNDS], f"adam step counts {ts}")
+    evals_s = [m["round_time"] - r["train_seconds"]
+               for m, r in zip(api.metrics_history, api.round_history)]
+    args = run["args"]
+    phase(n, "main path", f"Parrot FedOpt (server adam {args.server_lr}) "
+          f"{args.model} {args.compute_dtype} on {args.dataset}, "
+          f"{api.n_total} clients, {api.k} per round, {api.train_num} train /"
+          f" {n_test} test sequences of 80, {ROUNDS} rounds: "
+          f"{ROUNDS / run['secs']:.3f} rounds/s over all rounds "
+          f"({run['steady']:.3f} after round 0), "
+          f"{run['samples'] / run['secs']:.1f} train tokens/s, eval "
+          f"{statistics.median(evals_s):.3f} s per round, final token "
+          f"test_acc {final['test_acc']:.4f} test_loss "
+          f"{final['test_loss']:.4f}, peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB, launches flash_attention "
+          f"{launches['flash_attention']} (2 per eval batch), "
+          f"fused_epilogue.adam {launches['fused_epilogue.adam']}, "
+          f"weighted_reduce {launches['weighted_reduce']}, data "
+          f"{run['t_data']:.1f} s, whole phase {run['total']:.1f} s")
+    return launches, api
+
+
+def trace_phase(n, what, one_client_round, nb):
+    """``one_client_round`` — one client trained and aggregated by a main
+    path's round code — timed once plainly and once under
     ``torch.profiler`` (same seed, same work): the device's busy time from
     the profiler's kernel records against the plain wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def one_client_round():
-        rm = api._bucketed_round_step(torch.Generator().manual_seed(99))
-        float(rm["train_loss"])
+    def run():
+        one_client_round()
         torch.cuda.synchronize()
 
-    buckets = api.buckets
-    api.buckets = [buckets[len(buckets) // 2]]
-    try:
-        one_client_round()                      # warm
-        t0 = time.perf_counter()
-        one_client_round()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            one_client_round()
-    finally:
-        api.buckets = buckets
+    run()                                   # warm
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        phase(PHASES, "trace", "the profiler recorded no device activity: "
+        phase(n, "trace", "the profiler recorded no device activity: "
               "device busy time not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    nb = api.buckets[len(api.buckets) // 2]["nb"]
     server = sum(us for name, us in by_name.items()
                  if "fused_epilogue" in name or "weighted_reduce" in name)
-    phase(PHASES, "trace", f"one client ({nb} batches of 32) of the middle "
-          f"stratum, trained and aggregated with FedOpt: wall {wall:.3f} s, "
+    flash = sum(us for name, us in by_name.items() if "flash_fwd" in name)
+    phase(n, "trace", f"{what} ({nb} batches of 32): wall {wall:.3f} s, "
           f"device busy {busy:.3f} s ({busy / wall:.1%}; idle "
           f"{1 - busy / wall:.1%}), {len(kernels)} device activities "
           f"({len(kernels) / nb:.0f} per batch), server step (fused_epilogue"
-          f" + weighted_reduce) {server / 1e3:.4f} ms")
+          f" + weighted_reduce) {server / 1e3:.4f} ms, flash_attention "
+          f"{flash / 1e3:.4f} ms")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:9.2f} ms  {name[:100]}", flush=True)
+
+
+def trace_resnet(api):
+    """One client of the middle size stratum of the FedOpt ResNet path."""
+    buckets = api.buckets
+    mid = buckets[len(buckets) // 2]
+    api.buckets = [mid]
+    try:
+        trace_phase(8, "one client of the middle stratum, trained and "
+                    "aggregated with FedOpt",
+                    lambda: float(api._bucketed_round_step(
+                        torch.Generator().manual_seed(99))["train_loss"]),
+                    mid["nb"])
+    finally:
+        api.buckets = buckets
+
+
+def trace_lm(api):
+    """One client of median size of the BERT-tiny path, trained (dropout
+    0.1, the plain attention) and aggregated with server adam."""
+    sizes = api.local_num_dict
+    cid = sorted(sizes, key=lambda c: sizes[c])[len(sizes) // 2]
+    trace_phase(10, f"one client of the BERT-tiny path ({sizes[cid]} "
+                "sequences), trained and aggregated with FedOpt",
+                lambda: float(api._round_step(
+                    np.array([cid]))["train_loss"]),
+                -(-sizes[cid] // api.bs))
 
 
 def main():
@@ -704,20 +997,29 @@ def main():
         fedml_tpu_torch.Config(device_type="cuda"))
     build_phase()
     p_main, d_main, errs, fold_launches = kernel_phase(dev)
+    errs["flash_attention"] = flash_kernel_phase(dev)
     timing = timing_phase(dev, p_main, d_main, name)
+    timing["flash_attention"] = flash_timing_phase(dev, name)
     parity = parity_phase(dev)
-    # the FedAvg run's API is dropped before the FedOpt run, so that one's
+    lm_parity_phase(dev)
+    # each main path's API is dropped before the next run, so that one's
     # peak memory is its own
     avg_launches = main_path_phase(6, "FedAvg")[0]
     opt_launches, api = main_path_phase(7, "FedOpt (server adam)", **FEDOPT)
-    trace_phase(api)
-    # launches, each from its own path: the weighted reduce from both main
-    # paths, adam from the FedOpt main path, momentum and sgd from their
-    # card rounds in phase 5, mix from the async fold in phase 3
+    trace_resnet(api)
+    api = None
+    lm_launches, api = lm_main_path_phase(9)
+    trace_lm(api)
+    # launches, each from its own path: the weighted reduce from both
+    # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
+    # from their card rounds in phase 5, mix from the async fold in phase
+    # 3, the flash forward from the BERT-tiny path's eval passes
     launches = {
+        "flash_attention": lm_launches["flash_attention"],
         "weighted_reduce": (avg_launches["weighted_reduce"]
                             + opt_launches["weighted_reduce"]),
-        "adam": opt_launches["fused_epilogue.adam"],
+        "adam": (opt_launches["fused_epilogue.adam"]
+                 + lm_launches["fused_epilogue.adam"]),
         "momentum": parity["FedOpt sgd momentum 0.9"][
             "fused_epilogue.momentum"],
         "sgd": parity["FedOpt sgd"]["fused_epilogue.sgd"],

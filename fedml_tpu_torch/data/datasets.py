@@ -1,8 +1,9 @@
 """Dataset sources the ported slice reads.
 
 Port of ``fedml_tpu/data/datasets.py``, limited to ``load_arrays``' npz,
-mnist/cifar and default-synthetic branches.  Numpy only and kept verbatim,
-so both packages generate byte-identical synthetic stand-ins from one seed.
+mnist/cifar, shakespeare/fed_shakespeare and default-synthetic branches.
+Numpy only and kept verbatim, so both packages generate byte-identical
+synthetic stand-ins from one seed.
 A dataset found neither as ``<data_cache_dir>/<name>.npz`` nor among those
 branches raises ``NotImplementedError``.
 """
@@ -14,11 +15,28 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .tff_text import shakespeare_vocab_size
+
 Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+_SHAKESPEARE_SNIPPET = (
+    "to be or not to be that is the question whether tis nobler in the mind "
+    "to suffer the slings and arrows of outrageous fortune or to take arms "
+    "against a sea of troubles and by opposing end them to die to sleep no "
+    "more and by a sleep to say we end the heartache and the thousand natural "
+    "shocks that flesh is heir to tis a consummation devoutly to be wished "
+    "all the worlds a stage and all the men and women merely players they "
+    "have their exits and their entrances and one man in his time plays many "
+    "parts his acts being seven ages the quality of mercy is not strained it "
+    "droppeth as the gentle rain from heaven upon the place beneath it is "
+    "twice blest it blesseth him that gives and him that takes "
+)
 
 DATASET_CLASSES = {
     "mnist": 10, "femnist": 62,
     "cifar10": 10, "cifar100": 100, "cinic10": 10, "fed_cifar100": 100,
+    "shakespeare": shakespeare_vocab_size(),
+    "fed_shakespeare": shakespeare_vocab_size(),
 }
 
 
@@ -127,6 +145,32 @@ def synthetic_classification(n_features: int = 60, n_classes: int = 10,
     return xt, yt, xe, ye
 
 
+def shakespeare_sequences(seq_len: int = 80, n_train: int = 2000,
+                          n_test: int = 400, seed: int = 0,
+                          cache_dir: str = "") -> Arrays:
+    """Char-level next-char sequences, vocab 90 (reference fed_shakespeare).
+    Uses the full corpus from cache if present, else the embedded snippet."""
+    text = _SHAKESPEARE_SNIPPET * 50
+    if cache_dir:
+        p = os.path.join(cache_dir, "shakespeare.txt")
+        if os.path.exists(p):
+            with open(p, "r", errors="ignore") as f:
+                text = f.read()
+    codes = np.frombuffer(text.encode("ascii", "ignore"), dtype=np.uint8)
+    codes = np.clip(codes - 32, 0, 89).astype(np.int64)  # printable → [0,90)
+    rng = np.random.RandomState(seed)
+
+    def make(n):
+        starts = rng.randint(0, max(len(codes) - seq_len - 1, 1), size=n)
+        x = np.stack([codes[s:s + seq_len] for s in starts])
+        y = np.stack([codes[s + 1:s + seq_len + 1] for s in starts])
+        return x, y
+
+    xt, yt = make(n_train)
+    xe, ye = make(n_test)
+    return xt, yt, xe, ye
+
+
 def load_arrays(dataset: str, cache_dir: str, seed: int = 0,
                 scale: float = 1.0, hard: bool = False) -> Tuple[Arrays, int]:
     """→ ((x_train, y_train, x_test, y_test), num_classes).  ``scale``
@@ -150,9 +194,12 @@ def load_arrays(dataset: str, cache_dir: str, seed: int = 0,
         return (real or _synthetic_images((32, 32, 3), classes, sz(5000),
                                           sz(1000), seed,
                                           hard=hard)), classes
+    if dataset in ("shakespeare", "fed_shakespeare"):
+        return shakespeare_sequences(80, sz(2000), sz(400), seed,
+                                     cache_dir), 90
     if dataset == "synthetic":
         return synthetic_classification(60, 10, sz(2000), sz(500), seed), 10
     raise NotImplementedError(
         f"dataset {dataset!r} is not ported yet; the PyTorch port loads "
-        f"mnist, femnist, cifar10, cifar100, cinic10, fed_cifar100 and "
-        f"synthetic")
+        f"mnist, femnist, cifar10, cifar100, cinic10, fed_cifar100, "
+        f"shakespeare, fed_shakespeare and synthetic")

@@ -16,6 +16,13 @@ enters only the loss.
 The local update trains the bundle's module in place: the caller loads the
 global variables into it first (``FlatVariables.load``) and reads the
 trained state from it afterwards.
+
+Token batches (a language model's ``x`` and ``y`` of ``[nb, B, T]`` integer
+tokens) take the same path: ``x`` keeps its integer type, the ``[B]``
+mask broadcasts over the tokens, and the statistics count valid tokens.
+Dropout draws from a generator on the batch's device, reseeded from the
+caller's host generator once per step — the JAX engine splits its key once
+per step.  The two frameworks draw different bits from one seed.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ def make_batches(x, y, batch_size: int, num_batches: int,
         y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
     bx = torch.as_tensor(x.reshape((num_batches, batch_size) + x.shape[1:]),
                          device=device)
-    if dtype is not None:
+    # integer inputs (tokens) are indices: never cast to a float dtype
+    if dtype is not None and (bx.dtype.is_floating_point
+                              or not dtype.is_floating_point):
         bx = bx.to(dtype)
     return {"x": bx,
             "y": torch.as_tensor(
@@ -60,13 +69,26 @@ def make_batches(x, y, batch_size: int, num_batches: int,
                                     device=device)}
 
 
+def _step_generator(rng: Optional[torch.Generator],
+                    device: torch.device) -> Optional[torch.Generator]:
+    """A generator on ``device`` for one step's dropout, seeded from the
+    host generator ``rng`` (None without one)."""
+    if rng is None:
+        return None
+    seed = int(torch.randint(0, 2 ** 62, (), generator=rng))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
-    """Returns ``local_update(variables, batches, valid=None) -> metrics``.
+    """Returns ``local_update(variables, batches, valid=None, rng=None) ->
+    metrics``.
 
     ``variables`` is the bundle module's ``FlatVariables``, already holding
     the global model; it is trained in place.  ``valid`` lists, per batch,
     whether any mask entry is set (computed from ``batches["mask"]`` when
-    omitted, which waits for the device)."""
+    omitted, which waits for the device).  ``rng``, a host
+    ``torch.Generator``, seeds each step's dropout: a model that trains with
+    dropout needs it."""
     algo = str(getattr(cfg, "federated_optimizer", FED_OPT_FEDAVG))
     if algo not in _PLAIN_SGD:
         raise NotImplementedError(
@@ -77,7 +99,8 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
 
     def local_update(variables: FlatVariables,
                      batches: Dict[str, torch.Tensor],
-                     valid: Optional[List[bool]] = None
+                     valid: Optional[List[bool]] = None,
+                     rng: Optional[torch.Generator] = None
                      ) -> Dict[str, torch.Tensor]:
         params = variables.params
         mask_all = batches["mask"]
@@ -91,7 +114,8 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
                 if not valid[b]:
                     continue
                 x, y, m = batches["x"][b], batches["y"][b], mask_all[b]
-                logits = bundle.apply(x, train=True)
+                logits = bundle.apply(x, train=True,
+                                      rng=_step_generator(rng, x.device))
                 loss = bundle.loss(logits, y, m)
                 grads = torch.autograd.grad(loss, params)
                 sgd_step(params, list(grads))
@@ -113,7 +137,8 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
 def build_eval_step(bundle: ModelBundle) -> Callable:
     """``eval_batches(batches) -> {loss_sum, correct, n}`` over one padded
     batch stack, with the module's current variables and running BN
-    statistics."""
+    statistics; ``n`` counts valid label elements (tokens for a language
+    model), so ``correct / n`` is the token accuracy."""
 
     def eval_batches(batches: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:

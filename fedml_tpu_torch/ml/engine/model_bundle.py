@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 TASK_CLASSIFICATION = "classification"
+TASK_LM = "lm"                 # next-token prediction, logits [B, T, V]
 
 #: each flat buffer's length is a multiple of this many elements, so its
 #: rows stay 16-byte aligned for the kernel's vector loads
@@ -39,10 +40,12 @@ class ModelBundle:
     input_dtype: torch.dtype = torch.float32
     name: str = "model"
 
-    def apply(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, train: bool,
+              rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits; in train mode the BatchNorm running statistics are
-        updated in place."""
-        return self.module(x, train=train)
+        updated in place.  ``rng`` draws the dropout masks of a training
+        pass (JAX's ``rngs={"dropout": rng}``), on the device of ``x``."""
+        return self.module(x, train=train, rng=rng)
 
     def loss(self, logits: torch.Tensor, y: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -57,13 +60,13 @@ class ModelBundle:
 
     def valid_count(self, y: torch.Tensor, mask: torch.Tensor
                     ) -> torch.Tensor:
-        """Number of valid label elements — the denominator matching
-        ``correct_count``."""
+        """Number of valid label elements (tokens, not sequences, for a
+        language model) — the denominator matching ``correct_count``."""
         return broadcast_mask(mask, y.shape).sum()
 
 
 def broadcast_mask(mask: torch.Tensor, shape) -> torch.Tensor:
-    """[B] example mask → per-element mask of ``shape``."""
+    """[B] example mask → per-element mask of ``shape`` ([B, T] tokens)."""
     mask = mask.float()
     while mask.dim() < len(shape):
         mask = mask[..., None]
@@ -72,9 +75,10 @@ def broadcast_mask(mask: torch.Tensor, shape) -> torch.Tensor:
 
 def masked_loss(task: str, logits: torch.Tensor, y: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean softmax cross-entropy over valid (mask=1) examples, computed in
+    """Mean softmax cross-entropy over valid (mask=1) examples, or over the
+    valid tokens of a language model's ``[B, T, V]`` logits, computed in
     float32."""
-    if task != TASK_CLASSIFICATION:
+    if task not in (TASK_CLASSIFICATION, TASK_LM):
         raise NotImplementedError(f"loss for task {task!r} is not ported yet")
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)

@@ -117,12 +117,14 @@ class BatchNorm(nn.Module):
 
 class Dense(nn.Module):
     """``nn.Dense``: ``weight`` is [out, in] float32 (the flax kernel
-    transposed); computes in ``dtype`` and returns float32."""
+    transposed); computes in ``dtype`` and returns float32 — or ``dtype``
+    with ``float_out=False``, as a flax ``Dense`` inside a block does."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, float_out: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.float_out = float_out
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -132,8 +134,9 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype)).float()
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                     self.bias.to(self.dtype))
+        return y.float() if self.float_out else y
 
 
 class BasicBlock(nn.Module):
@@ -192,7 +195,9 @@ class CIFARResNet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``rng`` is unused: the ResNet has no dropout."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
         for b in self.blocks:

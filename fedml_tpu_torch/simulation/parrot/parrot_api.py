@@ -15,7 +15,8 @@ A round here:
   buffer per dtype (``FlatVariables``: parameters first, then the BatchNorm
   statistics);
 * aggregates the stacked buffers, weighted by each client's full sample
-  count: FedAvg reduces each with the weighted-reduce kernel, one launch
+  count (sequences, for a language model; its metrics count tokens): FedAvg
+  reduces each with the weighted-reduce kernel, one launch
   per dtype; FedOpt runs the server step on the parameter columns with the
   fused-epilogue kernel and reduces the statistics columns with the
   weighted-reduce kernel, two launches per dtype (``build_aggregate``).
@@ -25,7 +26,16 @@ window starts with a seeded ``torch.Generator`` (``seed + 17``), where the
 JAX package draws them with ``jax.random``; the distribution is the same
 (quota ``q`` per stratum without replacement, uniform window start mod the
 client's size), the draws are not.  The uniform round's
-``np.random.seed(round)`` draw is the reference's, exactly.
+``np.random.seed(round)`` draw is the reference's, exactly.  Dropout draws
+from a host generator seeded ``seed + 31``, one seed per training step
+(``ml/engine/local_update.py``), where the JAX package splits its round
+key per client and per step.
+
+Token data (``fed_shakespeare``: ``x`` and ``y`` of ``[N, 80]`` tokens)
+takes the same path: the device-resident dataset keeps ``x`` in the
+bundle's integer input dtype, the gathers yield ``[nb, B, T]`` grids with
+a ``[nb, B]`` sequence mask, and clients partition by their first label
+token when no row map was stashed.
 
 Not ported yet: the SCAFFOLD/FedDyn/FedNova/Mime/FedProx arms, robust
 aggregation, the fused multi-round scan, the AOT cache and compile-ahead,
@@ -247,6 +257,8 @@ class ParrotAPI:
         self.global_vars = self.vars.snapshot()
         self.local_update = build_local_update(bundle, args)
         self.eval_step = build_eval_step(bundle)
+        self.dropout_rng = torch.Generator().manual_seed(
+            int(getattr(args, "random_seed", 0) or 0) + 31)
 
         # ---- server state: FedOpt's optimizer state per dtype group, over
         # its parameter columns — the fused epilogue's {m, v, t} when the
@@ -319,7 +331,9 @@ class ParrotAPI:
         rows_map = getattr(self.args, "client_row_map", None)
         if rows_map is None:
             from ...data.partition import partition
-            m = partition(np.asarray(self.train_global[1]), self.n_total,
+            y = np.asarray(self.train_global[1])
+            labels = y if y.ndim == 1 else y[:, 0]
+            m = partition(labels, self.n_total,
                           str(getattr(self.args, "partition_method",
                                       "hetero")),
                           float(getattr(self.args, "partition_alpha", 0.5)
@@ -401,7 +415,7 @@ class ParrotAPI:
                 m = self.local_update(
                     self.vars,
                     {k: batches[k][i] for k in ("x", "y", "mask")},
-                    batches["valid"][i].tolist())
+                    batches["valid"][i].tolist(), rng=self.dropout_rng)
                 for dt, f in self.vars.flat.items():
                     self.stacked[dt][c].copy_(f)
                 per_client.append(m)

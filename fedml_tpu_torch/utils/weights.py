@@ -2,12 +2,20 @@
 
 The JAX package holds a model's state as ``{"params": ..., "batch_stats":
 ...}``, nested dicts keyed by the flax module names.  The port's modules
-carry the same names (``models/cv.py``), so a leaf maps by path and layout:
+carry the same names (``models/cv.py``, ``models/nlp.py``), so a leaf maps
+by path and layout:
 
 * ``Conv``: ``params/.../kernel`` HWIO ↔ ``weight`` OIHW;
 * ``Dense``: ``kernel`` [in, out] ↔ ``weight`` [out, in], ``bias`` ↔ ``bias``;
 * ``BatchNorm``: ``scale``/``bias`` ↔ ``weight``/``bias``, and
-  ``batch_stats/.../mean``/``var`` ↔ ``running_mean``/``running_var``.
+  ``batch_stats/.../mean``/``var`` ↔ ``running_mean``/``running_var``;
+* ``Embed``: ``embedding`` [vocab, dim] ↔ ``weight``, as it is;
+* ``LayerNorm``: ``scale``/``bias`` ↔ ``weight``/``bias``;
+* ``DenseGeneral`` (the attention heads' ``query``, ``key``, ``value``
+  and ``out``): ``kernel`` ↔ ``weight`` and ``bias`` ↔ ``bias`` in flax's
+  layouts, ``[dim, heads, head_dim]``/``[heads, head_dim]`` and
+  ``[heads, head_dim, dim]``/``[dim]``;
+* ``TinyTransformerLM.pos_embed`` ↔ ``params/pos_embed``.
 
 Trees cross as numpy arrays, so neither side imports the other.
 
@@ -31,6 +39,7 @@ from torch import nn
 
 from ..ml.engine.model_bundle import FlatVariables
 from ..models.cv import BatchNorm, Conv, Dense
+from ..models.nlp import DenseGeneral, Embed, LayerNorm, TinyTransformerLM
 
 # (module type, torch leaf) → (collection, flax leaf, torch→flax, flax→torch)
 _MAP = {
@@ -43,6 +52,12 @@ _MAP = {
     (BatchNorm, "bias"): ("params", "bias", None, None),
     (BatchNorm, "running_mean"): ("batch_stats", "mean", None, None),
     (BatchNorm, "running_var"): ("batch_stats", "var", None, None),
+    (Embed, "weight"): ("params", "embedding", None, None),
+    (LayerNorm, "weight"): ("params", "scale", None, None),
+    (LayerNorm, "bias"): ("params", "bias", None, None),
+    (DenseGeneral, "weight"): ("params", "kernel", None, None),
+    (DenseGeneral, "bias"): ("params", "bias", None, None),
+    (TinyTransformerLM, "pos_embed"): ("params", "pos_embed", None, None),
 }
 
 

@@ -1,5 +1,5 @@
-"""The CUDA weighted-reduce kernel against its plain PyTorch version, on the
-card.  Every test here needs an NVIDIA card and ``nvcc``: the kernel has no
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+weighted reduce, the fused epilogue and the flash-attention forward.  Every test here needs an NVIDIA card and ``nvcc``: the kernel has no
 CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fedml_tpu_torch.ops import epilogue
+from fedml_tpu_torch.ops import pallas_attention as attn
 
 F32_TOL = dict(atol=2e-6, rtol=2e-6)
 BF16_TOL = dict(atol=1e-6, rtol=2.0 ** -8)
@@ -221,3 +222,119 @@ def test_fused_epilogue_refuses_what_it_does_not_take(card):
                                 dict(st, v=torch.zeros(7, device=card)))
     with pytest.raises(ValueError):      # clients and weights disagree
         epilogue.fused_epilogue(g, x, torch.ones(2, device=card))
+
+
+# ------------------------------------------------------------ flash attention
+#: (atol, rtol) of the flash kernel against _reference_residuals: float32
+#: sums in another order (the kernel's FMAs over key tiles, the plain
+#: version's cuBLAS products) — the JAX package's own tolerance for its
+#: kernel; a bfloat16 o at one to two bfloat16 steps (2^-8 relative) after
+#: rounding float32 results that differ in their last bits
+FLASH_F32 = dict(atol=2e-5, rtol=2e-5)
+FLASH_BF16 = dict(atol=1e-2, rtol=1e-2)
+
+
+def _flash_inputs(b, h, t, d, dtype, card, tk=None, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, n, d, generator=gen).to(dtype).to(card)
+            for n in (t, tk or t, tk or t)]
+
+
+def _check_partial(got, ref, dtype):
+    for g, r, name in zip(got, ref, "olm"):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        tol = FLASH_BF16 if (name == "o" and dtype == torch.bfloat16) \
+            else FLASH_F32
+        torch.testing.assert_close(g.float(), r.float(), msg=name, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", attn.HEAD_DIMS)
+@pytest.mark.parametrize("t", [80, 200, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_version(causal, t, d, dtype, card):
+    q, k, v = _flash_inputs(2, 2, t, d, dtype, card, seed=t + d)
+    for t_valid in (t, t - 13):
+        before = attn.LAUNCHES["flash_attention"]
+        got = attn.flash_attention_residuals(q, k, v, causal, t_valid)
+        torch.cuda.synchronize()
+        assert attn.LAUNCHES["flash_attention"] == before + 1
+        _check_partial(got, attn._reference_residuals(q, k, v, causal,
+                                                      t_valid), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tk", [160, 37])
+def test_flash_kernel_with_another_key_length(tk, card):
+    """Non-causal residuals over Tk != T keys, aligned and ragged."""
+    q, k, v = _flash_inputs(3, 2, 80, 64, torch.float32, card, tk=tk)
+    got = attn.flash_attention_residuals(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _check_partial(got, attn._reference_residuals(q, k, v, False),
+                   torch.float32)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_and_writes_through_strides(card):
+    """flash_mha hands the kernel [B, T, H, D] tensors as [B, H, T, D]
+    views: no copy, and o comes back in the same layout."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(4, 80, 2, 64, generator=gen).bfloat16().to(card)
+               for _ in range(3))
+    got = attn.flash_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    ref = attn._reference(*(x.transpose(1, 2) for x in (q, k, v)), True)
+    torch.testing.assert_close(got.float(), ref.transpose(1, 2).float(),
+                               **FLASH_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_misaligned_rows(dtype, card):
+    """Rows that do not start 16-byte aligned (a slice one element into a
+    wider tensor): the wrapper copies them, and the kernel gives the plain
+    version's values."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 2, 80, 65, generator=gen).to(dtype).to(card)
+               [..., 1:] for _ in range(3))
+    got = attn.flash_attention_residuals(q, k, v, True)
+    torch.cuda.synchronize()
+    _check_partial(got, attn._reference_residuals(q, k, v, True), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [80, 200])
+def test_flash_attention_gradients_on_the_card(t, card):
+    """The autograd path on the card (kernel forward, blockwise backward)
+    against the same path on the CPU (plain forward, blockwise backward)."""
+    cpu = _flash_inputs(2, 2, t, 64, torch.float32, "cpu", seed=t)
+    do = torch.randn(2, 2, t, 64, generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", card):
+        xs = [x.to(dev).requires_grad_(True) for x in cpu]
+        out = attn.flash_attention(*xs, causal=True)
+        grads[str(dev)] = [out] + list(torch.autograd.grad(
+            out, xs, do.to(dev)))
+    for g, c in zip(grads[str(card)], grads["cpu"]):
+        torch.testing.assert_close(g.detach().cpu(), c.detach(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 2, 8, 48, device=card)
+    with pytest.raises(ValueError):      # head dim 48
+        attn.flash_attention_residuals(q, q, q)
+    h = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):       # float16
+        attn.flash_attention_residuals(h, h, h)
+    f = torch.zeros(1, 2, 8, 64, device=card)
+    with pytest.raises(TypeError):       # mixed dtypes
+        attn.flash_attention_residuals(f, f.bfloat16(), f.bfloat16())
+    with pytest.raises(ValueError):      # k on the CPU
+        attn.flash_attention_residuals(f, f.cpu(), f)
+    with pytest.raises(ValueError):      # k, v of other shapes
+        attn.flash_attention_residuals(f, f, torch.zeros(1, 2, 9, 64,
+                                                         device=card))

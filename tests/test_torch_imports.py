@@ -28,7 +28,9 @@ def _imported_roots(tree):
 
 
 def test_the_port_has_modules_to_check():
-    assert "fedml_tpu_torch/ops/epilogue.py" in SOURCES
+    for rel in ("ops/epilogue.py", "ops/pallas_attention.py",
+                "models/nlp.py", "data/natural.py", "data/tff_text.py"):
+        assert f"fedml_tpu_torch/{rel}" in SOURCES
     assert len(SOURCES) >= 15
 
 

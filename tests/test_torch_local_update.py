@@ -165,3 +165,103 @@ def test_unported_algorithms_raise():
         cfg.federated_optimizer = algo
         with pytest.raises(NotImplementedError, match="not ported yet"):
             lu.build_local_update(bundle, cfg)
+
+
+# ----------------------------------------------------- language-model client
+LM_KW = dict(vocab_size=90, dim=64, layers=2, heads=2, max_len=96,
+             dropout=0.0)
+
+
+def _lm_client(seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 90, size=(N_REAL, 80)).astype(np.int64),
+            rng.randint(0, 90, size=(N_REAL, 80)).astype(np.int64))
+
+
+def test_lm_client_update_and_eval_match_jax():
+    """One epoch of SGD of a TinyTransformerLM (dropout 0, float32, dim 64,
+    2 layers, 2 heads) on token batches: two full batches of 8 sequences, a
+    partly padded one and an all-padding one.  The metrics count tokens,
+    the padded sequences none.  Tolerance ``atol=rtol=2e-5``: both sides
+    compute in float32 (no BatchNorm cancellation here), and three SGD
+    steps at lr 0.05 carry the gradients' float32 rounding into the
+    parameters."""
+    from fedml_tpu.models.nlp import TinyTransformerLM as JaxLM
+    from fedml_tpu_torch.ml.engine.model_bundle import TASK_LM
+    from fedml_tpu_torch.models.nlp import TinyTransformerLM
+
+    x, y = _lm_client(4)
+    jmodule = JaxLM(dtype=jnp.float32, **LM_KW)
+    np_vars = jax.tree_util.tree_map(np.asarray, dict(jmodule.init(
+        {"params": jax.random.PRNGKey(5)}, jnp.zeros((2, 80), jnp.int32))))
+    jbundle = JaxBundle(jmodule, (80,), 90, task="lm",
+                        input_dtype=jnp.int32)
+    jbatches = jax_lu.make_batches(x, y, BS, NB, jnp.int32)
+    j_vars, _, j_metrics = jax.jit(
+        jax_lu.build_local_update(jbundle, _cfg(JaxConfig)))(
+            np_vars, jbatches, jax.random.PRNGKey(0))
+    j_eval = jax.jit(jax_lu.build_eval_step(jbundle))(j_vars, jbatches)
+
+    model = TinyTransformerLM(**LM_KW)
+    bundle = ModelBundle(model, (80,), 90, task=TASK_LM,
+                         input_dtype=torch.int32)
+    flat = FlatVariables(model)
+    from_flax_variables(np_vars, model)
+    batches = lu.make_batches(x, y, BS, NB, torch.int32)
+    assert batches["x"].dtype == torch.int32
+    metrics = lu.build_local_update(bundle, _cfg(Config))(
+        flat, batches, rng=torch.Generator().manual_seed(0))
+    tol = dict(atol=2e-5, rtol=2e-5)
+    got, want = _leaves(to_flax_variables(model)), _leaves(dict(j_vars))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+    assert metrics["local_steps"] == 3 == int(j_metrics["local_steps"])
+    assert float(metrics["n_samples"]) == N_REAL * 80 == float(
+        j_metrics["n_samples"])
+    for k in ("train_loss", "train_acc"):
+        np.testing.assert_allclose(float(metrics[k]), float(j_metrics[k]),
+                                   err_msg=k, **tol)
+    ev = lu.build_eval_step(bundle)(batches)
+    assert float(ev["n"]) == N_REAL * 80
+    for k in ("loss_sum", "correct", "n"):
+        np.testing.assert_allclose(float(ev[k]), float(j_eval[k]),
+                                   err_msg=k, **tol)
+
+
+def test_token_inputs_are_never_cast_to_a_float_dtype():
+    x, y = _lm_client(1)
+    b = lu.make_batches(x.astype(np.int32), y, BS, NB, torch.bfloat16)
+    assert b["x"].dtype == torch.int32 and b["y"].dtype == torch.int64
+    assert tuple(b["x"].shape) == (NB, BS, 80)
+    assert tuple(b["mask"].shape) == (NB, BS)
+    img = lu.make_batches(*_client(0), BS, NB, torch.bfloat16)
+    assert img["x"].dtype == torch.bfloat16
+
+
+def test_dropout_draws_one_generator_per_step():
+    """At dropout 0.1 each step reseeds the device generator from the
+    host generator: the same host seed repeats the run exactly, another
+    seed gives other masks."""
+    from fedml_tpu_torch.ml.engine.model_bundle import TASK_LM
+    from fedml_tpu_torch.models.nlp import TinyTransformerLM
+
+    x, y = _lm_client(2)
+    batches = lu.make_batches(x, y, BS, NB, torch.int32)
+    runs = []
+    for seed in (0, 0, 1):
+        model = TinyTransformerLM(**dict(LM_KW, dropout=0.1),
+                                  generator=torch.Generator().manual_seed(3))
+        bundle = ModelBundle(model, (80,), 90, task=TASK_LM,
+                             input_dtype=torch.int32)
+        flat = FlatVariables(model)
+        host = torch.Generator().manual_seed(seed)
+        lu.build_local_update(bundle, _cfg(Config))(flat, batches, rng=host)
+        runs.append(flat.snapshot()[torch.float32])
+        # three steps, one draw from the host generator each
+        ref = torch.Generator().manual_seed(seed)
+        for _ in range(3):
+            torch.randint(0, 2 ** 62, (), generator=ref)
+        assert torch.equal(host.get_state(), ref.get_state())
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
