@@ -16,19 +16,23 @@ raises and ends the run with a non-zero exit:
 3. kernels — each kernel against its plain PyTorch version on the card, on
    the unit-test cases and at the main paths' shapes, with the tolerance:
    the weighted reduce (also on a column range), the four channels of the
-   fused epilogue, the async ``fold_buffer`` (its ``none`` channel), and
-   the flash-attention forward (o, l and m; causal and not, T of 80, 200
+   fused epilogue, the async ``fold_buffer`` (its ``none`` channel), the
+   flash-attention forward (o, l and m; causal and not, T of 80, 200
    and 512, head dims 32, 64 and 128, float32 and bfloat16, and keys of
-   another length than the queries);
+   another length than the queries), and the int8 wire codec's quantize
+   and dequantize, bit for bit (the unit-test sizes, with rows that hold a
+   NaN or an infinity, ResNet-56's whole flat vector as one segment and
+   its 287 leaves as a segment table);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
    could take;
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
    and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
-   a ResNet-8; and FedOpt (server adam) on the transformer language model
+   a ResNet-8; FedOpt (server adam) on the transformer language model
    at dropout 0, whose training runs the flash kernel forward and the
-   blockwise backward;
+   blockwise backward; and one cross-silo FedAvg round of a ResNet-8 over
+   INPROC, 3 silos, with the int8 wire codec;
 6. main path, FedAvg — the north-star config of ``bench.py`` (Parrot
    FedAvg, ResNet-56 at full width in bfloat16, 100 clients split
    Dirichlet(0.5), 10 per round in 10 size strata capped at 0.8, batch 32,
@@ -45,11 +49,19 @@ raises and ends the run with a non-zero exit:
    clients split Dirichlet(0.5) by first token, 10 per round, batch 32) for
    3 rounds on 20,000 train and 4,000 test sequences of 80 tokens, with a
    token-accuracy eval every round: the eval passes run the flash kernel;
-10. trace — one client of that path's round, as phase 8.
+10. trace — one client of that path's round, as phase 8;
+11. main path, cross-silo — synchronous FedAvg over INPROC (the server and
+    8 silo threads in one process), ResNet-56 at full width in bfloat16,
+    8 silos split Dirichlet(0.5), all 8 every round, batch 32, lr 0.05, 3
+    rounds with an eval every round, on the 5k/1k hard synthetic CIFAR-10
+    stand-in, through the same five steps: with ``wire_compression:
+    int8`` (every broadcast and upload through the wire kernels) and raw,
+    in turns (int8, raw, raw, int8), with the wire bytes of each and the
+    launch counts the protocol implies.
 
-Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7
-and 9) is driven with the kernels' launch counts set to 0 just before it
-and read just after.  Then one JSON line of per-kernel numbers and, last, the
+Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
+9 and 11) is driven with the kernels' launch counts set to 0 just before
+it and read just after.  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,11 +91,15 @@ from fedml_tpu_torch.models.cv import CIFARResNet
 from fedml_tpu_torch.models.nlp import TinyTransformerLM
 from fedml_tpu_torch.ops import cuda_build, epilogue
 from fedml_tpu_torch.ops import pallas_attention as attn
+from fedml_tpu_torch.ops import wire_compression as wc
 from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
+from fedml_tpu_torch.utils.compression import WIRE_BYTES, WireCodec, decode_delta
+from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
+from fedml_tpu_torch.utils.weights import tree_from_module
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 10
+PHASES = 11
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -109,6 +125,18 @@ LM_CONFIG = dict(
     random_seed=0, federated_optimizer="FedOpt", server_optimizer="adam",
     server_lr=0.1,
     data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_lm"))
+#: the cross-silo path: FedAvg over INPROC, 8 silos all in every round,
+#: on the 5,000 / 1,000 hard synthetic CIFAR-10 stand-in
+SILOS = 8
+CS_CONFIG = dict(
+    dataset="cifar10", model="resnet56", training_type="cross_silo",
+    backend="INPROC", role="simulated", partition_method="hetero",
+    partition_alpha=0.5, client_num_in_total=SILOS,
+    client_num_per_round=SILOS, comm_round=ROUNDS, epochs=1, batch_size=32,
+    learning_rate=0.05, frequency_of_the_test=1, enable_tracking=False,
+    compute_dtype="bfloat16", data_scale=1, synthetic_hard=True,
+    random_seed=0,
+    data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_cs"))
 
 EPI = "fedml_tpu_torch/csrc/fused_epilogue.cu"
 #: the paths' kernels: (name, source, the TPU kernel it replaces, channel)
@@ -122,6 +150,11 @@ KERNELS = [
     ("fused_epilogue.adam", EPI, "fedml_tpu/ops/epilogue.py:183", "adam"),
     ("flash_attention", "fedml_tpu_torch/csrc/flash_attention.cu",
      "fedml_tpu/ops/pallas_attention.py:111", None),
+    ("wire_compression.quantize", "fedml_tpu_torch/csrc/wire_compression.cu",
+     "fedml_tpu/ops/wire_compression.py:62", None),
+    ("wire_compression.dequantize",
+     "fedml_tpu_torch/csrc/wire_compression.cu",
+     "fedml_tpu/ops/wire_compression.py:108", None),
 ]
 CHANNELS = ("none", "sgd", "momentum", "adam")
 # (atol, rtol): float32 sums in another order — the fused channels round
@@ -141,14 +174,17 @@ def check(cond, msg):
 
 
 def reset_launches():
-    for counts in (epilogue.LAUNCHES, attn.LAUNCHES):
+    for counts in (epilogue.LAUNCHES, attn.LAUNCHES, wc.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
-    """The launch counts, with ``fused_epilogue`` the sum of its channels."""
-    counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES)
+    """The launch counts, with ``fused_epilogue`` the sum of its channels
+    and the wire kernels as ``wire_compression.<kernel>``."""
+    counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES,
+                  **{f"wire_compression.{k}": n
+                     for k, n in wc.LAUNCHES.items()})
     counts["fused_epilogue"] = sum(
         n for k, n in counts.items() if k.startswith("fused_epilogue."))
     return counts
@@ -187,7 +223,8 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    names = ["weighted_reduce", "fused_epilogue", "flash_attention"]
+    names = ["weighted_reduce", "fused_epilogue", "flash_attention",
+             "wire_compression"]
     paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
     phase(2, "build", f"{len(paths)} kernel sources built from "
@@ -639,6 +676,219 @@ def flash_timing_phase(dev, card):
     return rows[LM_EVAL_SHAPE]
 
 
+def _wire_vector(d, gen):
+    """float32 [d] whose 512-value rows cycle through the unit tests'
+    kinds: random, all zero, values on .5 after scaling (max 127, so scale
+    1), max below 1e-30, above 1e30, all negative, a NaN among random
+    values, +inf and -inf among random values (a diverged update: the
+    scale NaN or inf, the row decoded to NaN)."""
+    x = torch.randn(d, generator=gen)
+    for r in range(-(-d // wc.BLOCK)):
+        lo, hi = r * wc.BLOCK, min(d, (r + 1) * wc.BLOCK)
+        kind = (r + d) % 8
+        if kind == 1:
+            x[lo:hi] = 0.0
+        elif kind == 2:
+            v = torch.randint(-126, 127, (hi - lo,), generator=gen) + 0.5
+            v[0] = 127.0
+            x[lo:hi] = v
+        elif kind == 3:
+            x[lo:hi] *= 1e-33
+        elif kind == 4:
+            x[lo:hi] *= 1e35
+        elif kind == 5:
+            x[lo:hi] = -x[lo:hi].abs()
+        elif kind == 6:
+            x[lo + (hi - lo) // 2] = float("nan")
+        elif kind == 7:
+            x[lo] = float("inf")
+            x[hi - 1] = -float("inf")
+    return x
+
+
+def resnet56_wire_lengths():
+    """ResNet-56's wire tree, one segment per leaf (287) in wire order: the
+    segment table of every broadcast of the cross-silo path."""
+    tree = tree_from_module(CIFARResNet(depth=56, num_classes=10))
+    return [leaf.numel() for leaf in tree_leaves(tree)]
+
+
+def _wire_plain(x, lengths):
+    """The plain versions on the card, segment by segment."""
+    qs, ss, outs, off = [], [], [], 0
+    for n in lengths or [x.numel()]:
+        q, s = wc.quantize_int8_reference(x[off:off + n])
+        qs.append(q)
+        ss.append(s)
+        outs.append(wc.dequantize_int8_reference(q, s, n))
+        off += n
+    return torch.cat(qs), torch.cat(ss), torch.cat(outs)
+
+
+def _same_bits(got, want, label):
+    """Equal bits, where a NaN matches a NaN of any payload; the max |err|
+    of the finite values."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+          f"version {want.dtype} {tuple(want.shape)}")
+    if want.is_floating_point():
+        nan = want.isnan()
+        check(torch.equal(got.isnan(), nan),
+              f"{label}: kernel and plain version have NaNs in different "
+              f"places ({int(got.isnan().sum())} and {int(nan.sum())})")
+        got, want = got[~nan], want[~nan]
+    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+          f"{label}: kernel and plain version differ in "
+          f"{int((got != want).sum())} values")
+    diff = (got.float() - want.float()).abs()
+    diff = diff[diff.isfinite()]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def wire_kernel_phase(dev):
+    """The quantize and dequantize kernels against their plain versions,
+    bit for bit: the unit-test sizes, ResNet-56's whole flat vector as one
+    segment (the uplink), and its 287 leaves as a segment table in one
+    launch (the broadcast)."""
+    gen = torch.Generator().manual_seed(5)
+    lengths = resnet56_wire_lengths()
+    d_main = sum(lengths)
+    cases = [(f"D={d}", d, None) for d in (1, 511, 512, 513, 32 * 512 + 7,
+                                           100_000)]
+    cases += [("resnet56_flat", d_main, None),
+              ("resnet56_leaves", d_main, lengths)]
+    errs = {"wire_compression.quantize": 0.0,
+            "wire_compression.dequantize": 0.0}
+    for label, d, lens in cases:
+        x = _wire_vector(d, gen).to(dev)
+        before = dict(wc.LAUNCHES)
+        q, s = wc.quantize_int8_blocked(x, lens)
+        out = wc.dequantize_int8_blocked(q, s, d, lens)
+        torch.cuda.synchronize()
+        check(wc.LAUNCHES["quantize"] == before["quantize"] + 1
+              and wc.LAUNCHES["dequantize"] == before["dequantize"] + 1,
+              f"wire kernels {label}: one launch each, got {wc.LAUNCHES}")
+        want_q, want_s, want = _wire_plain(x, lens)
+        errs["wire_compression.quantize"] = max(
+            errs["wire_compression.quantize"],
+            _same_bits(q, want_q, f"quantize {label} q"),
+            _same_bits(s, want_s, f"quantize {label} scales"))
+        errs["wire_compression.dequantize"] = max(
+            errs["wire_compression.dequantize"],
+            _same_bits(out, want, f"dequantize {label}"))
+    phase(3, "kernels", f"wire_compression quantize and dequantize vs plain "
+          f"versions, bit for bit (q, scales, dequantized values; rows "
+          f"random, zero, on .5, below 1e-30, above 1e30, negative, with a "
+          f"NaN, with +inf and -inf): "
+          f"{', '.join(c[0] for c in cases)} ({len(lengths)} segments, D "
+          f"{d_main}), one launch each per call; max |err| "
+          f"{errs['wire_compression.quantize']:.1e} / "
+          f"{errs['wire_compression.dequantize']:.1e} (tolerance: equal "
+          f"bits)")
+    return errs
+
+
+def wire_timing_phase(dev, card):
+    """Both wire kernels at ResNet-56's flat D (the uplink's one segment),
+    cold L2: kernel, plain version and, for the dequantize,
+    ``torch.mul(q_rows, scales[:, None])`` on the ``[R, 512]`` view of a
+    padded q (one call, int8 × float32 promoting to float32).  The
+    quantize has no library call: no single PyTorch call derives each
+    row's scale and its rounded values (``torch.quantize_per_channel``
+    takes the scales as input, divides, and clamps to −128).  Also, for
+    the record, both kernels over the broadcast's 287-segment table."""
+    lengths = resnet56_wire_lengths()
+    d = sum(lengths)
+    rows = -(-d // wc.BLOCK)
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn(d, generator=gen) * 1e-2).to(dev)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    q, s = wc.quantize_int8_blocked(x)
+    q_rows = torch.zeros(rows * wc.BLOCK, dtype=torch.int8, device=dev)
+    q_rows[:d] = q
+    q_rows = q_rows.view(rows, wc.BLOCK)
+    lib = torch.mul(q_rows, s[:, None])
+    check(lib.dtype == torch.float32, f"torch.mul gave {lib.dtype}")
+    _same_bits(lib.reshape(-1)[:d], wc.dequantize_int8_reference(q, s, d),
+               "torch.mul(q_rows, scales[:, None])")
+    out = {}
+    for name, kernel, plain, library, nbytes, ops in (
+            ("wire_compression.quantize",
+             lambda: wc.quantize_int8_blocked(x),
+             lambda: wc.quantize_int8_reference(x), None,
+             4 * d + d + 4 * rows, 6 * d + 2 * rows),
+            ("wire_compression.dequantize",
+             lambda: wc.dequantize_int8_blocked(q, s, d),
+             lambda: wc.dequantize_int8_reference(q, s, d),
+             lambda: torch.mul(q_rows, s[:, None]),
+             d + 4 * rows + 4 * d, d)):
+        p1 = _time_ms(plain, flush)
+        k1 = _time_ms(kernel, flush)
+        lib_ms = _time_ms(library, flush) if library is not None else None
+        k2 = _time_ms(kernel, flush)
+        p2 = _time_ms(plain, flush)
+        bound_ms, bound_by = _bound(nbytes, ops, card)
+        ms = statistics.median([k1, k2])
+        out[name] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        lib_note = (f"torch.mul(q_rows, scales[:, None]) {lib_ms:.4f} ms"
+                    if lib_ms is not None else
+                    "none (no single PyTorch call derives the scales and "
+                    "the rounded values)")
+        phase(4, "timing", f"{name} at D {d} (one segment), cold L2, median "
+              f"of 50: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, library {lib_note}, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {nbytes / 1e6:.3f} MB at "
+              f"{card_peaks(card)[0] / 1e12:.2f} TB/s) -> "
+              f"{bound_ms / ms:.1%} of the bound")
+    qs, ss = wc.quantize_int8_blocked(x, lengths)
+    tq = _time_ms(lambda: wc.quantize_int8_blocked(x, lengths), flush)
+    td = _time_ms(lambda: wc.dequantize_int8_blocked(qs, ss, d, lengths),
+                  flush)
+    phase(4, "timing", f"wire kernels over the broadcast's {len(lengths)}-"
+          f"segment table ({ss.numel()} scales), cold L2, median of 50: "
+          f"quantize {tq:.4f} ms, dequantize {td:.4f} ms")
+    return out, codec_host_phase(dev)
+
+
+def codec_host_phase(dev):
+    """The wire codec's whole calls on ResNet-56's tree on the card — host
+    work and launches, one thread, host clock over 20 calls ending in a
+    synchronize — and what one round of the cross-silo path makes of
+    them: one ``encode_model`` and ``SILOS + 1`` ``decode_model`` (the
+    server's and each silo's), ``SILOS`` ``encode_delta`` and ``SILOS``
+    ``decode_delta``.  Returns that per-round sum in seconds."""
+    tree = tree_map(lambda t: t.to(dev), tree_from_module(
+        CIFARResNet(depth=56, num_classes=10)))
+    enc = WireCodec.encode_model(tree)
+    ref = WireCodec.decode_model(enc)
+    codec = WireCodec("int8")
+    payload = codec.encode_delta(tree, ref)
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = {"encode_model": host_ms(lambda: WireCodec.encode_model(tree)),
+          "decode_model": host_ms(lambda: WireCodec.decode_model(enc)),
+          "encode_delta": host_ms(lambda: codec.encode_delta(tree, ref)),
+          "decode_delta": host_ms(lambda: decode_delta(payload, ref))}
+    per_round = (ms["encode_model"] + (SILOS + 1) * ms["decode_model"]
+                 + SILOS * (ms["encode_delta"] + ms["decode_delta"]))
+    phase(4, "timing", f"wire codec per call on ResNet-56's "
+          f"{len(tree_leaves(tree))}-leaf tree, one thread, host clock "
+          f"ending in a synchronize: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f"; one round of {SILOS} silos makes {per_round:.1f} ms of it")
+    return per_round / 1e3
+
+
 def _small_round(device, **kw):
     """One uniform Parrot round of a ResNet-8 in float32 on ``device``,
     from the same seeded variables: the global model as a flax tree, the
@@ -801,6 +1051,76 @@ def lm_parity_phase(dev):
     return launches
 
 
+def _cs_round(device):
+    """One cross-silo FedAvg round over INPROC of a ResNet-8 in float32, 3
+    silos, int8 wire codec, on ``device``, from the same seeded variables:
+    the final global tree, the final metrics and the server."""
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
+        dataset="cifar10", training_type="cross_silo", backend="INPROC",
+        role="simulated", client_num_in_total=3, client_num_per_round=3,
+        comm_round=1, batch_size=16, learning_rate=0.05, data_scale=0.02,
+        compute_dtype="float32", frequency_of_the_test=1,
+        wire_compression="int8", run_id=f"smoke_cs8_{device.type}",
+        device_type=device.type,
+        data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_small")))
+    dataset = fedml_tpu_torch.data.load(args)
+    module = CIFARResNet(depth=8, num_classes=10,
+                         generator=torch.Generator().manual_seed(0))
+    runner = FedMLRunner(args, device, dataset,
+                         ModelBundle(module, (32, 32, 3), 10))
+    final = runner.run()
+    server = runner.runner.server
+    return server.aggregator.get_global_model_params(), final, server
+
+
+def cs_parity_phase(dev):
+    """Card vs CPU, one int8-wire cross-silo round.  The broadcast is the
+    same bits on both (the kernels match their plain versions bit for
+    bit); training differs by cuDNN's summation order, under 1e-3 as in
+    the Parrot rounds; and where that moves an upload's value across an
+    int8 rounding boundary, its int8 value differs by one step, which
+    moves the aggregate by up to one step of the largest upload scale.
+    So: every variable within 1e-3 + that step, and at least 99 % within
+    1e-4.  The card's launches must be the protocol's: N + 1 quantize,
+    3N + 1 dequantize, 1 reduce."""
+    reset_launches()
+    gpu_tree, gpu_m, gpu_server = _cs_round(dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cpu_tree, cpu_m, cpu_server = _cs_round(torch.device("cpu"))
+    n = 3
+    check(launches["wire_compression.quantize"] == n + 1
+          and launches["wire_compression.dequantize"] == 3 * n + 1
+          and launches["weighted_reduce"] == 1,
+          f"cross-silo round launched {launches}")
+    # each silo's decoded upload minus the round's reference is its
+    # dequantized delta, whose largest value is 127 of its largest scale
+    ref = tree_leaves(gpu_server._round_ref)
+    step = max(float((u - r).abs().max()) for up in
+               gpu_server.aggregator.model_dict.values()
+               for u, r in zip(tree_leaves(up), ref)) / 127.0
+    diffs = torch.cat([(g.cpu() - c).abs().reshape(-1) for g, c in
+                       zip(tree_leaves(gpu_tree), tree_leaves(cpu_tree))])
+    d = float(diffs.max())
+    close = float((diffs <= 1e-4).float().mean())
+    check(d <= 1e-3 + step and close >= 0.99,
+          f"cross-silo round: card vs CPU max |Δ| {d:.3g} (limit 1e-3 + "
+          f"one int8 step {step:.3g}), {close:.3%} within 1e-4")
+    gl = gpu_server.round_history[0]["train_loss"]
+    cl = cpu_server.round_history[0]["train_loss"]
+    check(abs(gl - cl) <= 1e-4 * max(1.0, abs(cl)),
+          f"cross-silo round: train_loss {gl} vs {cl}")
+    phase(5, "parity", f"cross-silo ResNet-8 f32 round over INPROC, 3 silos, "
+          f"int8 wire, card vs CPU: max |Δvariables| {d:.2e} (limit 1e-3 + "
+          f"one int8 step {step:.2e}), {close:.3%} within 1e-4, "
+          f"{float((diffs <= 1e-6).float().mean()):.3%} within 1e-6, mean "
+          f"silo train_loss {gl:.6f} vs {cl:.6f}, test_acc "
+          f"{gpu_m['test_acc']:.4f} vs {cpu_m['test_acc']:.4f}; card "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                   if v))
+    return launches
+
+
 def _drive(config, unit="samples"):
     """Run ``config`` through ``init → device → data → model →
     FedMLRunner(...).run()`` with the launch counts set to 0 just before
@@ -922,6 +1242,107 @@ def lm_main_path_phase(n):
     return launches, api
 
 
+def cross_silo_phase(n, codec_round_s):
+    """The cross-silo main path with the int8 wire and raw, in turns (int8,
+    raw, raw, int8: the two compare inside one call), each run through
+    ``init → device → data → model → FedMLRunner(...).run()`` with the
+    launch counts set to 0 just before and read just after.  Per round the
+    protocol implies, with N silos: quantize N + 1 (the server's broadcast
+    encode, cached for the round, and N uploads), dequantize 3N + 1 (the
+    server's decode of its own broadcast, N silo decodes, N error-feedback
+    residuals, N decodes of uploads), one weighted reduce.  The summary
+    sets the int8 runs' extra seconds per round beside ``codec_round_s``,
+    the codec's single-thread time for one round (phase 4)."""
+    runs = []
+    for turn, (codec, wire) in enumerate((("int8", "int8"), ("raw", None),
+                                          ("raw", None), ("int8", "int8"))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run_id = f"smoke_cs_{codec}_{turn}"
+        t0 = time.perf_counter()
+        args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
+            **CS_CONFIG, run_id=run_id, wire_compression=wire))
+        device = fedml_tpu_torch.device.get_device(args)
+        dataset = fedml_tpu_torch.data.load(args)
+        t_data = time.perf_counter() - t0
+        bundle = fedml_tpu_torch.model.create(args, dataset[-1])
+        runner = FedMLRunner(args, device, dataset, bundle)
+        final = runner.run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total = time.perf_counter() - t0
+        server = runner.runner.server
+        hist, evals = server.round_history, server.aggregator.metrics_history
+        check(len(hist) == ROUNDS and len(evals) == ROUNDS,
+              f"{codec}: {len(hist)} rounds and {len(evals)} evals, not "
+              f"{ROUNDS}")
+        for h, m in zip(hist, evals):
+            print(f"    {codec} run {turn} round {h['round']}: mean silo "
+                  f"train_loss {h['train_loss']:.6f}, {h['seconds']:.3f} s, "
+                  f"{h['samples']:.0f} samples; test_loss "
+                  f"{m['test_loss']:.4f} test_acc {m['test_acc']:.4f}",
+                  flush=True)
+            check(math.isfinite(h["train_loss"])
+                  and math.isfinite(m["test_loss"])
+                  and 0 <= m["test_acc"] <= 1,
+                  f"{codec} round {h['round']}: {h}, {m}")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(
+            server.aggregator.get_global_model_params())),
+            f"{codec}: non-finite global variables")
+        want_q = ROUNDS * (SILOS + 1) if wire else 0
+        want_d = ROUNDS * (3 * SILOS + 1) if wire else 0
+        check(launches["wire_compression.quantize"] == want_q
+              and launches["wire_compression.dequantize"] == want_d
+              and launches["weighted_reduce"] == ROUNDS
+              and launches["fused_epilogue"] == 0,
+              f"{codec}: {ROUNDS} rounds of {SILOS} silos launched "
+              f"{launches}; want quantize {want_q}, dequantize {want_d}, "
+              f"weighted_reduce {ROUNDS}")
+        secs = sum(h["seconds"] for h in hist)
+        steady = sum(h["seconds"] for h in hist[1:])
+        samples = sum(h["samples"] for h in hist)
+        nbytes = WIRE_BYTES.for_run(run_id)
+        runs.append(dict(codec=codec, launches=launches, bytes=nbytes,
+                         final=final, rounds_s=ROUNDS / secs,
+                         round_s=secs / ROUNDS))
+        phase(n, "main path", f"cross-silo FedAvg over INPROC, "
+              f"{args.model} {args.compute_dtype}, {SILOS} silos, wire "
+              f"{codec} (run {turn}), {ROUNDS} rounds: "
+              f"{ROUNDS / secs:.3f} rounds/s ({(ROUNDS - 1) / steady:.3f} "
+              f"after round 0), {samples / secs:.1f} samples/s, final "
+              f"test_acc {final['test_acc']:.4f} test_loss "
+              f"{final['test_loss']:.4f}, wire bytes "
+              + ", ".join(f"{d} {c} {v}" for (d, c), v in
+                          sorted(nbytes.items()))
+              + f", peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches quantize {launches['wire_compression.quantize']}, "
+              f"dequantize {launches['wire_compression.dequantize']}, "
+              f"weighted_reduce {launches['weighted_reduce']}, data "
+              f"{t_data:.1f} s, whole run {total:.1f} s")
+        runner = bundle = server = None
+    raw, q8 = runs[1]["bytes"], runs[0]["bytes"]
+    up = raw[("up", "raw")] / q8[("up", "int8")]
+    down = raw[("down", "raw")] / q8[("down", "int8")]
+    check(up > 3.0, f"int8 uplink only {up:.2f}x smaller than raw")
+    rate = {c: statistics.mean(r["rounds_s"] for r in runs
+                               if r["codec"] == c) for c in ("int8", "raw")}
+    extra = (statistics.mean(r["round_s"] for r in runs if r["codec"] ==
+                             "int8")
+             - statistics.mean(r["round_s"] for r in runs if r["codec"] ==
+                               "raw"))
+    phase(n, "main path", f"raw / int8 wire bytes: uplink {up:.3f}x, "
+          f"downlink {down:.3f}x; rounds/s int8 {rate['int8']:.3f} vs raw "
+          f"{rate['raw']:.3f} (mean of two runs each): int8 takes "
+          f"{extra:+.3f} s per round, the codec's single-thread work "
+          f"{codec_round_s:.3f} s; test_acc int8 "
+          f"{runs[0]['final']['test_acc']:.4f} vs raw "
+          f"{runs[1]['final']['test_acc']:.4f}")
+    return runs[0]["launches"]
+
+
 def trace_phase(n, what, one_client_round, nb):
     """``one_client_round`` — one client trained and aggregated by a main
     path's round code — timed once plainly and once under
@@ -998,10 +1419,14 @@ def main():
     build_phase()
     p_main, d_main, errs, fold_launches = kernel_phase(dev)
     errs["flash_attention"] = flash_kernel_phase(dev)
+    errs.update(wire_kernel_phase(dev))
     timing = timing_phase(dev, p_main, d_main, name)
     timing["flash_attention"] = flash_timing_phase(dev, name)
+    wire_timing, codec_round_s = wire_timing_phase(dev, name)
+    timing.update(wire_timing)
     parity = parity_phase(dev)
     lm_parity_phase(dev)
+    cs_parity_phase(dev)
     # each main path's API is dropped before the next run, so that one's
     # peak memory is its own
     avg_launches = main_path_phase(6, "FedAvg")[0]
@@ -1010,11 +1435,17 @@ def main():
     api = None
     lm_launches, api = lm_main_path_phase(9)
     trace_lm(api)
+    api = None
+    cs_launches = cross_silo_phase(11, codec_round_s)
     # launches, each from its own path: the weighted reduce from both
     # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
-    # 3, the flash forward from the BERT-tiny path's eval passes
+    # 3, the flash forward from the BERT-tiny path's eval passes, the wire
+    # kernels from the int8 cross-silo path
     launches = {
+        "wire_compression.quantize": cs_launches["wire_compression.quantize"],
+        "wire_compression.dequantize":
+            cs_launches["wire_compression.dequantize"],
         "flash_attention": lm_launches["flash_attention"],
         "weighted_reduce": (avg_launches["weighted_reduce"]
                             + opt_launches["weighted_reduce"]),

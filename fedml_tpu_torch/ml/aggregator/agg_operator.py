@@ -2,23 +2,28 @@
 
 Port of ``fedml_tpu/ml/aggregator/agg_operator.py``: ``agg_stacked`` (the
 vectorized Parrot path), ``mix_global`` and ``fold_buffer`` (the
-buffered-async fold).  The robust operators and the host-driven
-``FedMLAggOperator`` are not ported yet.
+buffered-async fold), ``weighted_average``, and the host-driven
+``FedMLAggOperator`` (the cross-silo server's funnel) with its FedAvg
+arm.  Robust aggregation and the SCAFFOLD and Mime arms raise
+``NotImplementedError`` naming port item A9.
 
-Trees are dicts of tensors: ``agg_stacked`` and ``fold_buffer`` take one
-``[C, ...]`` tensor per key (the Parrot engine passes one ``[C, D]`` buffer
-per dtype), ``mix_global`` and ``fold_buffer`` the global's tensor under
-the same key.
+``agg_stacked`` and ``fold_buffer`` take dicts of tensors: one ``[C, ...]``
+tensor per key (the Parrot engine passes one ``[C, D]`` buffer per dtype),
+``mix_global`` and ``fold_buffer`` the global's tensor under the same key.
+``weighted_average`` and ``FedMLAggOperator`` take ``(n_samples, tree)``
+pairs, the trees nested dicts of tensors (``utils/tree.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, TypeVar
+from typing import Any, Dict, List, Sequence, Tuple, TypeVar
 
 import numpy as np
 import torch
 
+from ...constants import FED_OPT_MIME, FED_OPT_SCAFFOLD
 from ...ops.epilogue import fused_epilogue, weighted_reduce
+from ...utils.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 K = TypeVar("K")
 
@@ -70,3 +75,138 @@ def fold_buffer(global_tree: Dict[K, torch.Tensor],
                                 weights, server_lr)
         out[k] = new.reshape(g.shape)
     return out
+
+
+def weighted_average(grad_list: Sequence[Tuple[float, Any]]) -> Any:
+    """Sample-count weighted average of trees, leaf by leaf in plain torch
+    (``Σ_k (n_k / Σn) · leaf_k``); a round whose total is 0 takes uniform
+    weights."""
+    total = float(sum(n for n, _ in grad_list))
+    if total <= 0:
+        total = float(len(grad_list))
+        grad_list = [(1.0, g) for _, g in grad_list]
+    ws = [n / total for n, _ in grad_list]
+    trees = [g for _, g in grad_list]
+    return tree_map(lambda *leaves: sum(w * leaf for w, leaf
+                                        in zip(ws, leaves)), *trees)
+
+
+def _unstackable(grad_list: Sequence[Tuple[float, Any]]) -> str:
+    """Why the client payloads cannot be stacked into ``[C, D]`` buffers,
+    or ``""`` when they can: every payload a tree of one structure, with
+    float or integer tensors of matching shapes and dtypes on one
+    device."""
+    trees = [g for _, g in grad_list]
+    structure = tree_structure(trees[0])
+    first = tree_leaves(trees[0])
+    if not first:
+        return "a payload without tensors"
+    for c, tree in enumerate(trees):
+        if tree_structure(tree) != structure:
+            return f"payload {c} is another tree than payload 0"
+        for a, b in zip(first, tree_leaves(tree)):
+            if not isinstance(b, torch.Tensor):
+                return f"payload {c} holds a {type(b).__name__}"
+            if b.dtype.is_complex or b.dtype == torch.bool:
+                return f"payload {c} holds a {b.dtype} leaf"
+            if (b.shape != a.shape or b.dtype != a.dtype
+                    or b.device != a.device):
+                return (f"payload {c} holds a {b.dtype} {tuple(b.shape)} "
+                        f"leaf on {b.device} where payload 0 holds "
+                        f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    return ""
+
+
+def _on_card(grad_list: Sequence[Tuple[float, Any]]) -> bool:
+    return any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
+               for _, g in grad_list for leaf in tree_leaves(g))
+
+
+def _stack_trees(trees: Sequence[Any]
+                ) -> Tuple[Dict[torch.dtype, torch.Tensor],
+                           Dict[torch.dtype, List[int]]]:
+    """Stack the leaves of ``trees`` (one structure) into one ``[C, D]``
+    buffer per dtype, row ``c`` the concatenated leaves of tree ``c`` in
+    flatten order; with, per dtype, the flatten indexes of its leaves."""
+    first = tree_leaves(trees[0])
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, leaf in enumerate(first):
+        groups.setdefault(leaf.dtype, []).append(i)
+    rows = [tree_leaves(t) for t in trees]
+    stacked = {}
+    for dt, idx in groups.items():
+        d = sum(first[i].numel() for i in idx)
+        buf = torch.empty((len(trees), d), dtype=dt, device=first[0].device)
+        for c, leaves in enumerate(rows):
+            torch.cat([leaves[i].reshape(-1) for i in idx], out=buf[c])
+        stacked[dt] = buf
+    return stacked, groups
+
+
+def agg_trees(trees: Sequence[Any], weights: torch.Tensor) -> Any:
+    """Weighted average of ``trees`` with ``agg_stacked``: stacked once
+    into a ``[C, D]`` buffer per dtype, so a round of float32 trees is one
+    weighted-reduce launch.  Float leaves come back in their dtype,
+    integer leaves as float32."""
+    stacked, groups = _stack_trees(trees)
+    agg = agg_stacked(stacked, weights)
+    first = tree_leaves(trees[0])
+    leaves: List[Any] = [None] * len(first)
+    for dt, idx in groups.items():
+        off = 0
+        for i in idx:
+            n = first[i].numel()
+            leaves[i] = agg[dt][off:off + n].reshape(first[i].shape)
+            off += n
+    return tree_unflatten(tree_structure(trees[0]), leaves)
+
+
+class FedMLAggOperator:
+    """The host-driven aggregation funnel, dispatched on
+    ``args.federated_optimizer``.  Ported: the FedAvg arm, the plain
+    sample-weighted average."""
+
+    @staticmethod
+    def _reduce(args: Any, grad_list: List[Tuple[float, Any]],
+                center: Any = None) -> Any:
+        """One weighted reduction, stacked once and reduced by the
+        weighted-reduce kernel (``agg_trees``) while ``fused_epilogue`` is
+        on; a round whose total weight is 0 takes uniform weights.  The
+        leaf-by-leaf ``weighted_average`` takes the explicit
+        ``fused_epilogue: false`` and, on the CPU, payloads that do not
+        stack; on a card such payloads raise, as no kernel takes them."""
+        if getattr(args, "robust_agg", None):
+            raise NotImplementedError(
+                "robust_agg is not ported yet (port item A9)")
+        if grad_list and bool(getattr(args, "fused_epilogue", True)):
+            why = _unstackable(grad_list)
+            if not why:
+                ns = [float(n) for n, _ in grad_list]
+                device = tree_leaves(grad_list[0][1])[0].device
+                weights = (torch.ones(len(ns), dtype=torch.float32,
+                                      device=device) if sum(ns) <= 0 else
+                           torch.tensor(ns, dtype=torch.float32,
+                                        device=device))
+                return agg_trees([g for _, g in grad_list], weights)
+            if _on_card(grad_list):
+                raise ValueError(
+                    f"client payloads on a card that do not stack into one "
+                    f"[C, D] buffer per dtype for the weighted-reduce "
+                    f"kernel: {why}")
+        return weighted_average(grad_list)
+
+    @staticmethod
+    def agg(args: Any, raw_grad_list: List[Tuple[float, Any]],
+            center: Any = None) -> Any:
+        """``center`` is the current global model, the clipping anchor of
+        the JAX package's robust operators (A9); the FedAvg arm ignores
+        it."""
+        opt = getattr(args, "federated_optimizer", "FedAvg")
+        is_pair = bool(raw_grad_list) and isinstance(raw_grad_list[0][1],
+                                                     tuple)
+        if is_pair or opt in (FED_OPT_SCAFFOLD, FED_OPT_MIME):
+            raise NotImplementedError(
+                f"aggregation for {opt!r} (paired payloads: SCAFFOLD's "
+                f"control variates, Mime's gradients) is not ported yet "
+                f"(port item A9)")
+        return FedMLAggOperator._reduce(args, raw_grad_list, center)

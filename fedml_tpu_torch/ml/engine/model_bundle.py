@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +40,30 @@ class ModelBundle:
     task: str = TASK_CLASSIFICATION
     input_dtype: torch.dtype = torch.float32
     name: str = "model"
+    #: guards the module's state.  A JAX bundle is stateless; this one
+    #: trains and evaluates its module in place, so every thread that loads,
+    #: trains or evaluates it (the cross-silo plane's silo threads and its
+    #: server) holds the lock from loading variables to reading results —
+    #: one module used by one thread at a time, as one card runs one stream
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+    #: the module's ``FlatVariables`` once ``bind`` has built them
+    variables: Optional["FlatVariables"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def bind(self, device: torch.device) -> "FlatVariables":
+        """The module on ``device`` with its state laid out flat — moved and
+        built on the first call, the same afterwards.  Caller holds
+        ``lock``."""
+        device = torch.device(device)
+        if self.variables is None:
+            self.module.to(device)
+            self.variables = FlatVariables(self.module)
+        have = next(iter(self.variables.flat.values())).device
+        if have.type != device.type or (device.index is not None
+                                        and have.index != device.index):
+            raise ValueError(f"{self.name} is bound to {have}, not {device}")
+        return self.variables
 
     def apply(self, x: torch.Tensor, train: bool,
               rng: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""CIFAR ResNet in PyTorch.
+"""CIFAR ResNet and logistic regression in PyTorch.
 
-Port of ``fedml_tpu/models/cv.py``: ``CIFARResNet`` and ``BasicBlock`` with
-the BatchNorm branch of ``_norm`` and the ``conv_impl="lax"`` convolution.
+Port of ``fedml_tpu/models/cv.py``: ``LogisticRegression``, and
+``CIFARResNet`` and ``BasicBlock`` with the BatchNorm branch of ``_norm``
+and the ``conv_impl="lax"`` convolution.
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
 ``BasicBlock_3``, ``Dense_0``), so ``params/BasicBlock_3/Conv_0/kernel`` in
 the JAX tree is ``BasicBlock_3.Conv_0.weight`` here
@@ -137,6 +138,27 @@ class Dense(nn.Module):
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                      self.bias.to(self.dtype))
         return y.float() if self.float_out else y
+
+
+class LogisticRegression(nn.Module):
+    """One ``Dense`` over the flattened input (``Dense_0``, as flax names
+    it), computed in ``dtype`` with float32 logits; ``sigmoid_output``
+    applies the reference's sigmoid to them (``lr_sigmoid_outputs``)."""
+
+    def __init__(self, in_features: int, num_classes: int,
+                 dtype: torch.dtype = torch.float32,
+                 sigmoid_output: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.sigmoid_output = sigmoid_output
+        self.Dense_0 = Dense(in_features, num_classes, dtype)
+        self.Dense_0.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` and ``rng`` are unused: no dropout, no statistics."""
+        z = self.Dense_0(x.reshape(x.shape[0], -1))
+        return torch.sigmoid(z) if self.sigmoid_output else z
 
 
 class BasicBlock(nn.Module):

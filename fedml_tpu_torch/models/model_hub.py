@@ -1,9 +1,9 @@
 """Model hub — ``create(args, output_dim)`` dispatch.
 
-Port of ``fedml_tpu/models/model_hub.py`` for the CIFAR ResNets
-(``resnet20``, ``resnet32``, ``resnet56``) with BatchNorm and the plain
-convolution, and the BERT-tiny-scale transformer language model
-(``transformer``, ``bert_tiny``, ``bert-tiny``).  The model's variables
+Port of ``fedml_tpu/models/model_hub.py`` for logistic regression
+(``lr``), the CIFAR ResNets (``resnet20``, ``resnet32``, ``resnet56``) with
+BatchNorm and the plain convolution, and the BERT-tiny-scale transformer
+language model (``transformer``, ``bert_tiny``, ``bert-tiny``).  The model's variables
 are initialised from a ``torch.Generator`` seeded with ``random_seed``: the
 same initializers as flax, not the same numbers (``utils/weights.py``
 carries JAX's across).
@@ -11,17 +11,19 @@ carries JAX's across).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import torch
 
 from ..ml.engine.model_bundle import TASK_CLASSIFICATION, TASK_LM, ModelBundle
-from .cv import CIFARResNet
+from .cv import CIFARResNet, LogisticRegression
 from .nlp import TinyTransformerLM
 
 # dataset → (input_shape, default_classes, task)
 _DATASET_SHAPES = {
     "mnist": ((28, 28, 1), 10, TASK_CLASSIFICATION),
+    "synthetic": ((60,), 10, TASK_CLASSIFICATION),
     "femnist": ((28, 28, 1), 62, TASK_CLASSIFICATION),
     "cifar10": ((32, 32, 3), 10, TASK_CLASSIFICATION),
     "cifar100": ((32, 32, 3), 100, TASK_CLASSIFICATION),
@@ -33,15 +35,18 @@ _DATASET_SHAPES = {
 
 RESNETS = ("resnet20", "resnet32", "resnet56")
 TRANSFORMERS = ("transformer", "bert_tiny", "bert-tiny")
-MODELS = RESNETS + TRANSFORMERS
+MODELS = ("lr",) + RESNETS + TRANSFORMERS
 #: the JAX package's other models, and the port item that brings each
 _LATER = {"rnn": "A10", "vit": "A10", "vit_tiny": "A10", "vit-tiny": "A10",
           "functional_lm": "A15", "kv_lm": "A15"}
 
 
 def dataset_meta(dataset: str) -> Tuple[Tuple[int, ...], int, str]:
-    return _DATASET_SHAPES.get(str(dataset).lower(),
-                               ((32, 32, 3), 10, TASK_CLASSIFICATION))
+    name = str(dataset).lower()
+    if name.startswith("synthetic_") and name not in _DATASET_SHAPES:
+        # LEAF SYNTHETIC(α,β) variants share the base synthetic contract
+        return _DATASET_SHAPES["synthetic"]
+    return _DATASET_SHAPES.get(name, ((32, 32, 3), 10, TASK_CLASSIFICATION))
 
 
 def create(args: Any, output_dim: Optional[int] = None) -> ModelBundle:
@@ -61,7 +66,14 @@ def create(args: Any, output_dim: Optional[int] = None) -> ModelBundle:
     input_dtype = torch.int32 if task == TASK_LM else torch.float32
     gen = torch.Generator().manual_seed(int(getattr(args, "random_seed", 0)
                                             or 0))
-    if name in TRANSFORMERS:
+    if name == "lr":
+        module = LogisticRegression(
+            math.prod(input_shape), num_classes, dtype=dtype,
+            sigmoid_output=bool(getattr(args, "lr_sigmoid_outputs", False)),
+            generator=gen)
+        if task == TASK_LM:  # lr on text = bag-of-words; keep classification
+            task = TASK_CLASSIFICATION
+    elif name in TRANSFORMERS:
         module = TinyTransformerLM(vocab_size=num_classes, dtype=dtype,
                                    generator=gen)
         task = TASK_LM

@@ -41,12 +41,11 @@ from ..ml.engine.model_bundle import FlatVariables
 from ..models.cv import BatchNorm, Conv, Dense
 from ..models.nlp import DenseGeneral, Embed, LayerNorm, TinyTransformerLM
 
-# (module type, torch leaf) → (collection, flax leaf, torch→flax, flax→torch)
+# (module type, torch leaf) → (collection, flax leaf, axes of the torch
+# tensor in the flax layout, axes of the flax leaf in the torch layout)
 _MAP = {
-    (Conv, "weight"): ("params", "kernel",
-                       lambda a: a.transpose(2, 3, 1, 0),
-                       lambda a: a.transpose(3, 2, 0, 1)),
-    (Dense, "weight"): ("params", "kernel", np.transpose, np.transpose),
+    (Conv, "weight"): ("params", "kernel", (2, 3, 1, 0), (3, 2, 0, 1)),
+    (Dense, "weight"): ("params", "kernel", (1, 0), (1, 0)),
     (Dense, "bias"): ("params", "bias", None, None),
     (BatchNorm, "weight"): ("params", "scale", None, None),
     (BatchNorm, "bias"): ("params", "bias", None, None),
@@ -62,8 +61,9 @@ _MAP = {
 
 
 def _leaf_map(model: nn.Module):
-    """Yield (name, tensor, collection, flax path, torch→flax, flax→torch)
-    for every parameter and buffer of ``model``."""
+    """Yield (name, tensor, collection, flax path, torch→flax axes,
+    flax→torch axes) for every parameter and buffer of ``model``; an axes
+    entry is None where the layouts agree."""
     named = list(model.named_parameters()) + list(model.named_buffers())
     for name, t in named:
         prefix, _, leaf = name.rpartition(".")
@@ -97,7 +97,7 @@ def _read_tree(np_tree: Dict[str, Any], leaves) -> Iterator[Tuple[Any,
     for target, shape, path, from_flax in leaves:
         a = np.array(_get(np_tree, path), np.float32)
         if from_flax is not None:
-            a = from_flax(a)
+            a = a.transpose(from_flax)
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: flax shape {a.shape} does "
                              f"not fit {tuple(shape)}")
@@ -111,7 +111,7 @@ def _build_tree(leaves) -> Dict[str, Any]:
     for t, path, to_flax in leaves:
         a = t.detach().float().cpu().numpy()
         if to_flax is not None:
-            a = to_flax(a)
+            a = a.transpose(to_flax)
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -139,6 +139,41 @@ def to_flax_variables(model: nn.Module) -> Dict[str, Any]:
     numpy leaves in the flax layouts."""
     return _build_tree((t, (coll,) + path, to_flax)
                        for _, t, coll, path, to_flax, _ in _leaf_map(model))
+
+
+def tree_from_module(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s variables as the JAX package's tree of them —
+    ``{"params": ..., "batch_stats": ...}`` in the flax names and layouts —
+    with tensors in their own dtype on the module's device.  Every leaf is
+    a fresh contiguous copy: later training of the module leaves the tree
+    as it is.  The cross-silo plane exchanges these trees."""
+    out: Dict[str, Any] = {}
+    with torch.no_grad():
+        for _, t, coll, path, to_flax, _ in _leaf_map(model):
+            leaf = t.detach()
+            if to_flax is not None:
+                leaf = leaf.permute(to_flax)
+            node = out.setdefault(coll, {})
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = leaf.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def load_tree(tree: Dict[str, Any], model: nn.Module) -> None:
+    """The inverse of ``tree_from_module``: copy a tree of tensors in the
+    flax layouts into ``model`` in place (flat views included), casting to
+    each tensor's dtype and device.  The tree is only read."""
+    with torch.no_grad():
+        for name, t, coll, path, _, from_flax in _leaf_map(model):
+            leaf = _get(tree, (coll,) + path)
+            if from_flax is not None:
+                leaf = leaf.permute(from_flax)
+            if tuple(leaf.shape) != tuple(t.shape):
+                raise ValueError(f"{'/'.join((coll,) + path)}: shape "
+                                 f"{tuple(leaf.shape)} does not fit {name} "
+                                 f"{tuple(t.shape)}")
+            t.copy_(leaf)
 
 
 # ------------------------------------------------------- FedOpt server state

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-weighted reduce, the fused epilogue and the flash-attention forward.  Every test here needs an NVIDIA card and ``nvcc``: the kernel has no
+weighted reduce, the fused epilogue, the flash-attention forward and the
+int8 wire codec's quantize and dequantize (bit for bit).  Every test here needs an NVIDIA card and ``nvcc``: the kernel has no
 CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
@@ -12,8 +13,15 @@ Tolerances as in ``tests/test_torch_epilogue.py``: float32 at
 import pytest
 import torch
 
+from fedml_tpu_torch.arguments import Config
+from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
+from fedml_tpu_torch.models.cv import CIFARResNet
 from fedml_tpu_torch.ops import epilogue
 from fedml_tpu_torch.ops import pallas_attention as attn
+from fedml_tpu_torch.ops import wire_compression as wc
+from fedml_tpu_torch.utils.compression import WireCodec
+from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
+from fedml_tpu_torch.utils.weights import tree_from_module
 
 F32_TOL = dict(atol=2e-6, rtol=2e-6)
 BF16_TOL = dict(atol=1e-6, rtol=2.0 ** -8)
@@ -97,6 +105,52 @@ def test_weighted_reduce_takes_a_column_range(card):
     torch.testing.assert_close(got, epilogue.weighted_reduce_reference(
         cols.contiguous(), w), **F32_TOL)
     assert bool((out[:855776] == 0).all())
+
+
+def _card_payloads(card, n=3):
+    gen = torch.Generator().manual_seed(11)
+    return [(float(10 + c), {"params": {"Dense_0": {
+        "kernel": torch.randn(60, 10, generator=gen).to(card),
+        "bias": torch.randn(10, generator=gen).to(card)}}})
+        for c in range(n)]
+
+
+@pytest.mark.gpu
+def test_cross_silo_funnel_launches_the_kernel_once(card):
+    """Payloads on the card: one weighted-reduce launch for the round,
+    the plain sample-weighted mean's values."""
+    pairs = _card_payloads(card)
+    before = epilogue.LAUNCHES["weighted_reduce"]
+    got = FedMLAggOperator.agg(Config(), pairs)
+    torch.cuda.synchronize()
+    assert epilogue.LAUNCHES["weighted_reduce"] == before + 1
+    total = sum(n for n, _ in pairs)
+    for i, leaf in enumerate(tree_leaves(got)):
+        want = sum(n / total * tree_leaves(t)[i] for n, t in pairs)
+        torch.testing.assert_close(leaf, want, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "tree"])
+def test_cross_silo_funnel_raises_on_payloads_that_do_not_stack(fault,
+                                                                  card):
+    """On a card no kernel takes payloads that do not stack into one
+    ``[C, D]`` buffer per dtype, so the funnel raises instead of averaging
+    them leaf by leaf in plain PyTorch."""
+    pairs = _card_payloads(card)
+    dense = pairs[1][1]["params"]["Dense_0"]
+    if fault == "dtype":
+        dense["kernel"] = dense["kernel"].bfloat16()
+    elif fault == "shape":
+        dense["kernel"] = dense["kernel"][:59]
+    elif fault == "device":
+        dense["kernel"] = dense["kernel"].cpu()
+    else:
+        dense["extra"] = dense["bias"].clone()
+    before = epilogue.LAUNCHES["weighted_reduce"]
+    with pytest.raises(ValueError, match="do not stack"):
+        FedMLAggOperator.agg(Config(), pairs)
+    assert epilogue.LAUNCHES["weighted_reduce"] == before
 
 
 # (opt, C, P, stacked dtype, global dtype, weights, s, t): every channel
@@ -338,3 +392,172 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):      # k, v of other shapes
         attn.flash_attention_residuals(f, f, torch.zeros(1, 2, 9, 64,
                                                          device=card))
+
+
+# ------------------------------------------------------------ wire codec
+def _wire_vector(d, seed=0):
+    """float32 [d] whose 512-value rows cycle through random, all zero,
+    values on .5 after scaling, max below 1e-30, above 1e30, all negative
+    (``tests/test_torch_wire_compression.py``'s cases), a NaN among random
+    values, and +inf and -inf among random values."""
+    gen = torch.Generator().manual_seed(d + seed)
+    x = torch.randn(d, generator=gen)
+    for r in range(-(-d // wc.BLOCK)):
+        lo, hi = r * wc.BLOCK, min(d, (r + 1) * wc.BLOCK)
+        kind = (r + d) % 8
+        if kind == 1:
+            x[lo:hi] = 0.0
+        elif kind == 2:
+            v = torch.randint(-126, 127, (hi - lo,), generator=gen) + 0.5
+            v[0] = 127.0
+            x[lo:hi] = v
+        elif kind == 3:
+            x[lo:hi] *= 1e-33
+        elif kind == 4:
+            x[lo:hi] *= 1e35
+        elif kind == 5:
+            x[lo:hi] = -x[lo:hi].abs()
+        elif kind == 6:
+            x[lo + (hi - lo) // 2] = float("nan")
+        elif kind == 7:
+            x[lo] = float("inf")
+            x[hi - 1] = -float("inf")
+    return x
+
+
+def _bits_equal(got, want):
+    """Equal bits, where a NaN matches a NaN of any payload (the card and
+    the CPU make NaNs of different signs)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.cpu(), want.cpu()
+    if want.is_floating_point():
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        got, want = got[~nan], want[~nan]
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _resnet56_lengths():
+    """One segment per leaf of ResNet-56's wire tree (287), in wire
+    order: the broadcast's segment table."""
+    tree = tree_from_module(CIFARResNet(depth=56, num_classes=10))
+    return [leaf.numel() for leaf in tree_leaves(tree)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 511, 512, 513, 32 * 512 + 7, 100_000,
+                               860_026])
+def test_wire_kernels_match_plain_versions_bit_for_bit(d, card):
+    x = _wire_vector(d)
+    before = dict(wc.LAUNCHES)
+    q, s = wc.quantize_int8_blocked(x.to(card))
+    out = wc.dequantize_int8_blocked(q, s, d)
+    torch.cuda.synchronize()
+    assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
+    assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    want_q, want_s = wc.quantize_int8_reference(x)
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
+    _bits_equal(out, wc.dequantize_int8_reference(want_q, want_s, d))
+    # the plain version gives the same bits on the card (it divides by a
+    # tensor: PyTorch's CUDA division by a scalar multiplies instead)
+    card_q, card_s = wc.quantize_int8_reference(x.to(card))
+    _bits_equal(card_q, want_q)
+    _bits_equal(card_s, want_s)
+
+
+@pytest.mark.gpu
+def test_wire_kernels_keep_nan_and_inf_rows_visible(card):
+    """Rows with a NaN, an infinity, or both: q all 0, the scale NaN (a
+    NaN in the row) or inf, every value decoded NaN — the plain versions'
+    results, so a diverged update is not sent as a finite one."""
+    x = torch.randn(4 * wc.BLOCK, generator=torch.Generator().manual_seed(3))
+    x[3] = float("nan")
+    x[wc.BLOCK + 7] = float("inf")
+    x[2 * wc.BLOCK + 9] = -float("inf")
+    x[3 * wc.BLOCK + 1], x[3 * wc.BLOCK + 2] = float("nan"), float("inf")
+    q, s = wc.quantize_int8_blocked(x.to(card))
+    out = wc.dequantize_int8_blocked(q, s, x.numel())
+    torch.cuda.synchronize()
+    assert not q.any()
+    assert s[0].isnan() and s[3].isnan()
+    assert s[1].isinf() and s[2].isinf()
+    assert out.isnan().all()
+    want_q, want_s = wc.quantize_int8_reference(x)
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
+    _bits_equal(out, wc.dequantize_int8_reference(want_q, want_s, x.numel()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["resnet56_leaves", "ragged"])
+def test_wire_kernels_take_a_segment_table_in_one_launch(layout, card):
+    lengths = (_resnet56_lengths() if layout == "resnet56_leaves"
+               else [700, 3, 0, 512, 1029, 1, 5000])
+    x = _wire_vector(sum(lengths), seed=1)
+    before = dict(wc.LAUNCHES)
+    q, s = wc.quantize_int8_blocked(x.to(card), lengths)
+    out = wc.dequantize_int8_blocked(q, s, q.numel(), lengths)
+    torch.cuda.synchronize()
+    assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
+    assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    want_q, want_s = wc.quantize_int8_blocked(x, lengths)
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
+    _bits_equal(out, wc.dequantize_int8_blocked(want_q, want_s, q.numel(),
+                                                lengths))
+
+
+@pytest.mark.gpu
+def test_wire_kernels_take_rows_that_are_not_aligned(card):
+    """A vector starting 4 bytes into its buffer: no row is 16-byte
+    aligned, so every row takes the masked scalar path."""
+    x = _wire_vector(5 * 512 + 1, seed=2)
+    base = torch.zeros(x.numel() + 1, device=card)
+    base[1:] = x.to(card)
+    q, s = wc.quantize_int8_blocked(base[1:])
+    qbase = torch.zeros(q.numel() + 1, dtype=torch.int8, device=card)
+    qbase[1:] = q
+    out = wc.dequantize_int8_blocked(qbase[1:], s, q.numel())
+    torch.cuda.synchronize()
+    want_q, want_s = wc.quantize_int8_reference(x)
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
+    _bits_equal(out, wc.dequantize_int8_reference(want_q, want_s,
+                                                  x.numel()))
+
+
+@pytest.mark.gpu
+def test_encode_and_decode_model_on_the_card_match_the_cpu(card):
+    """A whole model's broadcast: one quantize and one dequantize launch,
+    the same bits as the CPU's encode and decode."""
+    tree = tree_from_module(CIFARResNet(depth=8, num_classes=10))
+    on_card = tree_map(lambda t: t.to(card), tree)
+    before = dict(wc.LAUNCHES)
+    enc = WireCodec.encode_model(on_card)
+    dec = WireCodec.decode_model(enc)
+    torch.cuda.synchronize()
+    assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
+    assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    want = WireCodec.decode_model(WireCodec.encode_model(tree))
+    for g, w in zip(tree_leaves(dec), tree_leaves(want)):
+        _bits_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_wire_kernels_refuse_what_they_do_not_take(card):
+    with pytest.raises(TypeError):
+        wc.quantize_int8_blocked(torch.zeros(600, dtype=torch.float64,
+                                             device=card))
+    with pytest.raises(TypeError):
+        wc.quantize_int8_blocked(torch.zeros(600, dtype=torch.bfloat16,
+                                             device=card))
+    q, s = wc.quantize_int8_blocked(torch.ones(600, device=card))
+    with pytest.raises(ValueError):
+        wc.dequantize_int8_blocked(q, s, 599)
+    with pytest.raises(ValueError):
+        wc.dequantize_int8_blocked(q, s[:1], 600)
+    with pytest.raises(ValueError):
+        wc.dequantize_int8_blocked(q, s.cpu(), 600)
+    with pytest.raises(ValueError):
+        wc.quantize_int8_blocked(torch.ones(600, device=card), [300, 200])

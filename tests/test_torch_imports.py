@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``fedml_tpu_torch`` and no line of
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package — checked on
-the source, so a lazy import inside a function counts too."""
+``chip_smoke.py`` or ``profile_cross_silo.py`` imports JAX, flax, optax or
+the JAX package — checked on the source, so a lazy import inside a
+function counts too."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fedml_tpu"}
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in
-                 (REPO / "fedml_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+                 (REPO / "fedml_tpu_torch").rglob("*.py")) + ["chip_smoke.py",
+                                                "profile_cross_silo.py"]
 
 
 def _imported_roots(tree):
@@ -29,9 +31,24 @@ def _imported_roots(tree):
 
 def test_the_port_has_modules_to_check():
     for rel in ("ops/epilogue.py", "ops/pallas_attention.py",
-                "models/nlp.py", "data/natural.py", "data/tff_text.py"):
+                "models/nlp.py", "data/natural.py", "data/tff_text.py",
+                "ops/wire_compression.py", "utils/compression.py",
+                "utils/serialization.py", "utils/tree.py",
+                "core/distributed/communication/message.py",
+                "core/distributed/communication/inprocess/"
+                "inproc_comm_manager.py",
+                "core/distributed/fedml_comm_manager.py",
+                "core/alg_frame/client_trainer.py",
+                "core/alg_frame/server_aggregator.py",
+                "ml/trainer/default_trainer.py",
+                "cross_silo/message_define.py",
+                "cross_silo/client/fedml_client_master_manager.py",
+                "cross_silo/client/trainer_dist_adapter.py",
+                "cross_silo/server/fedml_aggregator.py",
+                "cross_silo/server/fedml_server_manager.py",
+                "cross_silo/runner.py"):
         assert f"fedml_tpu_torch/{rel}" in SOURCES
-    assert len(SOURCES) >= 15
+    assert len(SOURCES) >= 40
 
 
 @pytest.mark.parametrize("rel", SOURCES)

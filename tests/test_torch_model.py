@@ -196,3 +196,52 @@ def test_model_hub_names_known_options():
     assert (n, n_stats) == (855770, 4256)
     assert len(list(bundle.module.parameters())) == 173
     assert len(list(bundle.module.buffers())) == 114
+
+
+@pytest.mark.parametrize("sigmoid", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logistic_regression_matches_jax(dtype, sigmoid):
+    """``model_hub.create("lr")`` on ``synthetic`` (60 features, 10
+    classes) against ``fedml_tpu.models.cv.LogisticRegression`` from the
+    same variables: logits, the masked loss and its gradients.  float32 at
+    ``F32_TOL`` (one matmul in another order); bfloat16 at ``BF16_TOL``
+    (both round inputs and weights to bfloat16, then sum in another
+    order)."""
+    from fedml_tpu.models.cv import LogisticRegression as JaxLR
+    from fedml_tpu_torch.arguments import Config
+
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    bundle = model_hub.create(Config(model="lr", dataset="synthetic",
+                                     compute_dtype=dtype,
+                                     lr_sigmoid_outputs=sigmoid))
+    assert bundle.input_shape == (60,) and bundle.num_classes == 10
+    rng = np.random.RandomState(7)
+    x = rng.randn(12, 60).astype(np.float32)
+    y = rng.randint(0, 10, 12)
+    mask = np.array([1.0] * 9 + [0.0] * 3, np.float32)
+    jmodel = JaxLR(10, dtype=jdt, sigmoid_output=sigmoid)
+    variables = jmodel.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    from_flax_variables(jax.tree_util.tree_map(np.asarray, variables),
+                        bundle.module)
+
+    def jloss(params):
+        logits = jmodel.apply({"params": params}, jnp.asarray(x))
+        return jax_masked_loss("classification", logits, jnp.asarray(y),
+                               jnp.asarray(mask)), logits
+
+    (want_loss, want_logits), want_grads = jax.value_and_grad(
+        jloss, has_aux=True)(variables["params"])
+    logits = bundle.apply(torch.from_numpy(x), train=True)
+    loss = bundle.loss(logits, torch.from_numpy(y), torch.from_numpy(mask))
+    loss.backward()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits, np.float32), **tol)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), **tol)
+    dense = bundle.module.Dense_0
+    np.testing.assert_allclose(
+        dense.weight.grad.numpy().T,
+        np.asarray(want_grads["Dense_0"]["kernel"], np.float32), **tol)
+    np.testing.assert_allclose(
+        dense.bias.grad.numpy(),
+        np.asarray(want_grads["Dense_0"]["bias"], np.float32), **tol)
