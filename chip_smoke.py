@@ -19,10 +19,14 @@ raises and ends the run with a non-zero exit:
    fused epilogue, the async ``fold_buffer`` (its ``none`` channel), the
    flash-attention forward (o, l and m; causal and not, T of 80, 200
    and 512, head dims 32, 64 and 128, float32 and bfloat16, and keys of
-   another length than the queries), and the int8 wire codec's quantize
+   another length than the queries), the int8 wire codec's quantize
    and dequantize, bit for bit (the unit-test sizes, with rows that hold a
    NaN or an infinity, ResNet-56's whole flat vector as one segment and
-   its 287 leaves as a segment table);
+   its 287 leaves as a segment table), top-k selection on ties against
+   the CPU's, bit for bit, and the fed-LLM adapter fold, bit for bit
+   (float32 and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37, BERT-tiny's
+   10-leaf rank-4 table, rank-3 leaves that are no multiples of 4, and a
+   misaligned buffer);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
    could take;
@@ -31,8 +35,9 @@ raises and ends the run with a non-zero exit:
    and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
    a ResNet-8; FedOpt (server adam) on the transformer language model
    at dropout 0, whose training runs the flash kernel forward and the
-   blockwise backward; and one cross-silo FedAvg round of a ResNet-8 over
-   INPROC, 3 silos, with the int8 wire codec;
+   blockwise backward; one cross-silo FedAvg round of a ResNet-8 over
+   INPROC, 3 silos, with the int8 wire codec; and one fed-LLM round over
+   INPROC (2 silos, the transformer at dropout 0 in float32, rank 4);
 6. main path, FedAvg — the north-star config of ``bench.py`` (Parrot
    FedAvg, ResNet-56 at full width in bfloat16, 100 clients split
    Dirichlet(0.5), 10 per round in 10 size strata capped at 0.8, batch 32,
@@ -57,11 +62,24 @@ raises and ends the run with a non-zero exit:
     stand-in, through the same five steps: with ``wire_compression:
     int8`` (every broadcast and upload through the wire kernels) and raw,
     in turns (int8, raw, raw, int8), with the wire bytes of each and the
-    launch counts the protocol implies.
+    launch counts the protocol implies;
+12. main path, fed-LLM — cross-silo LoRA SFT over INPROC where only
+    adapter trees cross the wire, the JAX package's
+    ``benchmarks/llm_bench.py --federated --quick`` config: shakespeare,
+    ``transformer`` at full width (vocab 90, dim 128, 2 layers, 2 heads,
+    dropout 0.1) in float32, 2 silos all in every round, LoRA rank 4,
+    sequences of 32, batch 4, lr 3e-3, ``data_scale`` 0.5, 3 rounds with an
+    eval every round, raw and with ``wire_compression: int8``, in turns:
+    rounds/s, train tokens/s per silo, eval seconds, wire bytes and the
+    uplink's reduction against the full model's bytes, and the launches
+    the protocol implies (the fold and the weighted reduce once a round,
+    the flash kernel once per layer of every eval batch);
+13. trace — one silo's local epoch of that path under ``torch.profiler``,
+    as phases 8 and 10.
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9 and 11) is driven with the kernels' launch counts set to 0 just before
-it and read just after.  Then one JSON line of per-kernel numbers and, last, the
+9, 11 and 12) is driven with the kernels' launch counts set to 0 just
+before it and read just after.  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,13 +111,19 @@ from fedml_tpu_torch.ops import cuda_build, epilogue
 from fedml_tpu_torch.ops import pallas_attention as attn
 from fedml_tpu_torch.ops import wire_compression as wc
 from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
+from fedml_tpu_torch.train.fed_llm import FedLLMAggregator, FedLLMTrainer
+from fedml_tpu_torch.train.fed_llm.trainer import (
+    FED_LLM_TOKENS,
+    FED_LLM_TRAIN_SECONDS,
+)
 from fedml_tpu_torch.utils.compression import WIRE_BYTES, WireCodec, decode_delta
+from fedml_tpu_torch.utils.serialization import estimate_nbytes
 from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
 from fedml_tpu_torch.utils.weights import tree_from_module
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 11
+PHASES = 13
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -138,6 +162,19 @@ CS_CONFIG = dict(
     random_seed=0,
     data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_cs"))
 
+#: the fed-LLM path: the JAX package's ``llm_bench.py --federated --quick``
+#: config (shakespeare, the full-width transformer in float32, 2 silos,
+#: LoRA rank 4, sequences of 32, batch 4, lr 3e-3, data_scale 0.5), 3 rounds
+LLM_SILOS = 2
+FED_LLM_CONFIG = dict(
+    dataset="shakespeare", model="transformer", training_type="cross_silo",
+    backend="INPROC", role="simulated", client_num_in_total=LLM_SILOS,
+    client_num_per_round=LLM_SILOS, comm_round=ROUNDS, epochs=1,
+    batch_size=4, learning_rate=3e-3, data_scale=0.5,
+    frequency_of_the_test=1, random_seed=0, enable_tracking=False,
+    compute_dtype="float32", fed_llm=True, lora_rank=4, fed_llm_seq_len=32,
+    data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_llm"))
+
 EPI = "fedml_tpu_torch/csrc/fused_epilogue.cu"
 #: the paths' kernels: (name, source, the TPU kernel it replaces, channel)
 KERNELS = [
@@ -155,6 +192,8 @@ KERNELS = [
     ("wire_compression.dequantize",
      "fedml_tpu_torch/csrc/wire_compression.cu",
      "fedml_tpu/ops/wire_compression.py:108", None),
+    ("fold_delta", "fedml_tpu_torch/csrc/fold_delta.cu",
+     "fedml_tpu/ops/epilogue.py:199", None),
 ]
 CHANNELS = ("none", "sgd", "momentum", "adam")
 # (atol, rtol): float32 sums in another order — the fused channels round
@@ -224,7 +263,7 @@ def device_phase():
 def build_phase():
     t0 = time.perf_counter()
     names = ["weighted_reduce", "fused_epilogue", "flash_attention",
-             "wire_compression"]
+             "wire_compression", "fold_delta"]
     paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
     phase(2, "build", f"{len(paths)} kernel sources built from "
@@ -500,17 +539,27 @@ def flash_kernel_phase(dev):
     return main
 
 
-def _time_ms(fn, flush, n=50, warmup=5):
+#: GPU clock cycles of ``torch.cuda._sleep`` that keep the card busy for
+#: about a millisecond while the host enqueues a call whose host work
+#: outlasts the cache flush (~0.085 ms)
+HIDE_CYCLES = 2_000_000
+
+
+def _time_ms(fn, flush, n=50, warmup=5, hide=False):
     """Median device time of ``fn`` over ``n`` calls, each on a cold L2:
     a 256 MB write precedes every call (the round's reduce reads client
     rows written long before), and keeps the card busy while the host
-    enqueues the call, so host overhead does not enter the interval."""
+    enqueues the call, so host overhead does not enter the interval; with
+    ``hide`` a GPU sleep of ``HIDE_CYCLES`` follows the write, for calls
+    whose host work outlasts it."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if hide:
+            torch.cuda._sleep(HIDE_CYCLES)
         s.record()
         fn()
         e.record()
@@ -788,6 +837,105 @@ def wire_kernel_phase(dev):
     return errs
 
 
+#: (d_in, d_out) of TinyTransformerLM's five LoRA targets: BERT-tiny's
+#: adapter table is their ``a`` [d_in, r] and ``b`` [r, d_out], 10 leaves
+LORA_TARGETS = [(128, 90), (128, 512), (512, 128), (128, 512), (512, 128)]
+
+
+def _adapter_tree(rank, dtype, dev, gen, misalign=0):
+    """BERT-tiny's adapter table at ``rank`` and a float32 delta of the same
+    shapes, each a tree of views into one buffer, as the fed-LLM plane holds
+    them; ``misalign`` starts the adapters' buffer that many values in, so
+    no leaf is 16-byte aligned.  Also the flat buffers."""
+    shapes = []
+    for i, (d_in, d_out) in enumerate(LORA_TARGETS):
+        shapes += [(f"t{i}", "a", (d_in, rank)),
+                   (f"t{i}", "b", (rank, d_out))]
+    total = sum(math.prod(sh) for _, _, sh in shapes)
+    a_buf = (torch.randn(total + misalign, generator=gen) * 0.01).to(
+        dtype).to(dev)
+    d_buf = (torch.randn(total, generator=gen) * 1e-3).to(dev)
+    a, d, off = {}, {}, 0
+    for path, k, sh in shapes:
+        n = math.prod(sh)
+        a.setdefault(path, {})[k] = a_buf[misalign + off:
+                                          misalign + off + n].view(sh)
+        d.setdefault(path, {})[k] = d_buf[off:off + n].view(sh)
+        off += n
+    return a, d, a_buf[misalign:], d_buf
+
+
+def _tied_delta(seed):
+    """4,096 float32 values of four magnitudes with random signs: the k-th
+    largest |x| of ``topk:0.1`` falls inside a run of ties."""
+    gen = torch.Generator().manual_seed(seed)
+    mags = torch.tensor([0.5, 0.25, 2.0 ** -6, 2.0 ** -10])
+    sign = torch.where(torch.rand(4096, generator=gen) < 0.5, -1.0, 1.0)
+    return mags[torch.randint(0, 4, (4096,), generator=gen)] * sign
+
+
+def fold_kernel_phase(dev):
+    """Kernel B6 against ``fold_delta_reference`` on the card, bit for bit:
+    float32 and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37, on
+    BERT-tiny's 10-leaf rank-4 table (11,112 values), rank-3 leaves (no
+    multiples of 4) and a misaligned buffer; one launch each.  Then top-k
+    selection on ties, the card against the CPU (which the CPU tests hold
+    to ``jax.lax.top_k``): indices, values and the error-feedback residual
+    of ``topk:0.1`` and ``topk8:0.1`` over three encodes, bit for bit."""
+    gen = torch.Generator().manual_seed(8)
+    err, n = 0.0, 0
+    for label, rank, mis in (("rank4", 4, 0), ("rank3", 3, 0),
+                             ("misaligned", 4, 1)):
+        for dt in (torch.float32, torch.bfloat16):
+            for lr in (0.0, 1.0, 0.37):
+                a, d, _, _ = _adapter_tree(rank, dt, dev, gen, mis)
+                before = epilogue.LAUNCHES["fold_delta"]
+                got = epilogue.fold_delta(a, d, lr)
+                torch.cuda.synchronize()
+                check(epilogue.LAUNCHES["fold_delta"] == before + 1,
+                      f"fold_delta {label}: one launch, got "
+                      f"{epilogue.LAUNCHES['fold_delta'] - before}")
+                want = epilogue.fold_delta_reference(a, d, lr)
+                for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                    err = max(err, _same_bits(g, w, f"fold_delta {label} "
+                                              f"{dt} lr {lr}"))
+                n += 1
+    a, d, _, _ = _adapter_tree(4, torch.float32, dev, gen)
+    want = epilogue.fold_delta_reference(a, d, 0.37)
+    epilogue.fold_delta(a, d, 0.37, out=a)
+    torch.cuda.synchronize()
+    for g, w in zip(tree_leaves(a), tree_leaves(want)):
+        _same_bits(g, w, "fold_delta in place")
+    phase(3, "kernels", f"fold_delta vs plain version, bit for bit: {n} "
+          f"cases (rank 4: BERT-tiny's 10 leaves, 11,112 values; rank 3; a "
+          f"misaligned buffer; f32 and bf16 adapters; server_lr 0, 1, 0.37) "
+          f"and one in place, one launch per call; max |err| {err:.1e} "
+          f"(tolerance: equal bits)")
+    x = _tied_delta(7)
+    got_v, got_i = wc.topk_select(x.to(dev), 409)
+    want_v, want_i = wc.topk_select(x, 409)
+    _same_bits(got_i.cpu(), want_i, "topk ties indices")
+    _same_bits(got_v.cpu(), want_v, "topk ties values")
+    for spec in ("topk:0.1", "topk8:0.1"):
+        on_card, on_cpu = WireCodec(spec), WireCodec(spec)
+        ref = {"w": torch.zeros(4096)}
+        for step in range(3):
+            update = {"w": _tied_delta(8 + step)}
+            got = on_card.encode_delta(tree_map(lambda t: t.to(dev), update),
+                                       tree_map(lambda t: t.to(dev), ref))
+            want = on_cpu.encode_delta(update, ref)
+            for k in ("idx", "values", "values_q", "scales"):
+                if k in want:
+                    _same_bits(got[k].cpu(), want[k], f"{spec} {k}")
+            _same_bits(on_card._residual.cpu(), on_cpu._residual,
+                       f"{spec} residual")
+    phase(3, "kernels", "top-k on ties (4,096 values of four magnitudes, k "
+          "409): card indices and values equal the CPU's, and topk:0.1 / "
+          "topk8:0.1 payloads and error-feedback residuals over 3 encodes "
+          "(tolerance: equal bits)")
+    return err
+
+
 def wire_timing_phase(dev, card):
     """Both wire kernels at ResNet-56's flat D (the uplink's one segment),
     cold L2: kernel, plain version and, for the dequantize,
@@ -850,6 +998,62 @@ def wire_timing_phase(dev, card):
           f"segment table ({ss.numel()} scales), cold L2, median of 50: "
           f"quantize {tq:.4f} ms, dequantize {td:.4f} ms")
     return out, codec_host_phase(dev)
+
+
+def fold_timing_phase(dev, card):
+    """Kernel B6 at the fed-LLM path's shape: BERT-tiny's rank-4 adapters,
+    11,112 float32 values over 10 leaves, ``server_lr`` 1, cold L2, median
+    of 50: kernel, plain version (4 ops a leaf) and
+    ``torch.add(a, d, alpha=lr)`` on the flat buffers, timed only — each
+    with a GPU sleep ahead of it, since the wrapper's host work (the trees'
+    walk, the leaf table, the output views) outlasts the cache flush.  The
+    whole call, host work included, is timed apart on the host clock.  The
+    bound: a and d read and the result written once (12 bytes a value)
+    against two float32 operations a value."""
+    gen = torch.Generator().manual_seed(9)
+    a, d, a_flat, d_flat = _adapter_tree(4, torch.float32, dev, gen)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    lib = torch.add(a_flat, d_flat, alpha=1.0)
+    got = epilogue.fold_delta(a, d, 1.0)
+    lib_err = _same_bits(lib, torch.cat([t.reshape(-1) for t in
+                                         tree_leaves(got)]),
+                         "torch.add(a, d, alpha=1) vs the fold")
+
+    def kernel():
+        epilogue.fold_delta(a, d, 1.0)
+
+    def plain():
+        epilogue.fold_delta_reference(a, d, 1.0)
+
+    def library():
+        torch.add(a_flat, d_flat, alpha=1.0)
+
+    p1 = _time_ms(plain, flush, hide=True)
+    k1 = _time_ms(kernel, flush, hide=True)
+    lib_ms = _time_ms(library, flush, hide=True)
+    k2 = _time_ms(kernel, flush, hide=True)
+    p2 = _time_ms(plain, flush, hide=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernel()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / 200 * 1e3
+    n = a_flat.numel()
+    nbytes = 12 * n
+    bound_ms, bound_by = _bound(nbytes, 2 * n, card)
+    ms = statistics.median([k1, k2])
+    phase(4, "timing", f"fold_delta at BERT-tiny's rank-4 adapters ({n} "
+          f"f32 values, {len(tree_leaves(a))} leaves, one launch), cold L2, "
+          f"a GPU sleep ahead of each call, median of 50: kernel {k1:.4f} / "
+          f"{k2:.4f} ms, plain (4 ops a leaf) {p1:.4f} / {p2:.4f} ms, "
+          f"library torch.add(a, d, alpha=1) {lib_ms:.4f} ms (vs the kernel "
+          f"max |err| {lib_err:.1e}), bound {bound_ms:.6f} ms ({bound_by}: "
+          f"{nbytes / 1e3:.1f} kB at {card_peaks(card)[0] / 1e12:.2f} TB/s) "
+          f"-> {bound_ms / ms:.2%} of the bound; the whole call with its "
+          f"host work {call_ms:.4f} ms (host clock, 200 calls)")
+    return dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def codec_host_phase(dev):
@@ -1121,6 +1325,71 @@ def cs_parity_phase(dev):
     return launches
 
 
+def _fed_llm_round(device):
+    """One fed-LLM round over INPROC — 2 silos, the full-width
+    TinyTransformerLM at dropout 0 in float32 (so both devices draw no
+    dropout), rank 4, seq 32, batch 4 — through the five steps on
+    ``device``, from the same seeded variables and adapters: the final
+    adapters, the metrics and the run id."""
+    run_id = f"smoke_fed_llm_{device.type}"
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(**dict(
+        FED_LLM_CONFIG, comm_round=1, data_scale=0.05, run_id=run_id,
+        device_type=device.type,
+        data_cache_dir=os.path.join(ROOT, ".data_cache",
+                                    "chip_smoke_small"))))
+    dataset = fedml_tpu_torch.data.load(args)
+    bundle = ModelBundle(TinyTransformerLM(
+        dropout=0.0, generator=torch.Generator().manual_seed(0)), (80,), 90,
+        task=TASK_LM, input_dtype=torch.int32)
+    runner = FedMLRunner(args, device, dataset, bundle)
+    final = runner.run()
+    return (runner.runner.server.aggregator.get_global_model_params(),
+            final, run_id)
+
+
+def fed_llm_parity_phase(dev):
+    """Card vs CPU, one fed-LLM round.  The silos' adam moves every factor
+    element by about lr per step whatever its gradient's size, so an
+    element whose gradient is at the level of the devices' summation-order
+    noise can move another way: every element within 2·lr·steps, at least
+    99 % within 1e-4, the eval loss within rtol 1e-4.  The card round
+    launches the fold and the weighted reduce once each, and the flash
+    kernel once per layer of every forward pass (training at dropout 0 and
+    eval)."""
+    reset_launches()
+    gpu, gpu_m, run_id = _fed_llm_round(dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cpu, cpu_m, _ = _fed_llm_round(torch.device("cpu"))
+    steps = int(sum(FED_LLM_TOKENS.for_run(run_id).values())) // (32 * 4)
+    n_eval = -(-int(cpu_m["test_total"]) // (80 * 4))
+    check(launches["fold_delta"] == 1 and launches["weighted_reduce"] == 1
+          and launches["flash_attention"] == 2 * (steps + n_eval),
+          f"fed-LLM round launched {launches}; want fold_delta 1, "
+          f"weighted_reduce 1, flash_attention {2 * (steps + n_eval)}")
+    diffs = torch.cat([(g.cpu() - c).abs().reshape(-1) for g, c in
+                       zip(tree_leaves(gpu), tree_leaves(cpu))])
+    d = float(diffs.max())
+    close = float((diffs <= 1e-4).float().mean())
+    limit = 2 * 3e-3 * steps
+    check(d <= limit and close >= 0.99,
+          f"fed-LLM round: card vs CPU max |Δadapters| {d:.3g} (limit "
+          f"{limit:.3g}), {close:.3%} within 1e-4")
+    dl = abs(gpu_m["test_loss"] - cpu_m["test_loss"])
+    check(dl <= 1e-4 * abs(cpu_m["test_loss"]),
+          f"fed-LLM round: test_loss {gpu_m['test_loss']} vs "
+          f"{cpu_m['test_loss']}")
+    phase(5, "parity", f"fed-LLM round over INPROC, 2 silos, transformer "
+          f"f32 dropout 0, rank 4 ({steps} local steps in all), card vs "
+          f"CPU: max |Δadapters| {d:.2e} (limit {limit:.3g}), {close:.3%} "
+          f"within 1e-4, "
+          f"{float((diffs <= 1e-6).float().mean()):.3%} within 1e-6, "
+          f"test_loss {gpu_m['test_loss']:.6f} vs {cpu_m['test_loss']:.6f} "
+          f"(tolerance rtol 1e-4); card launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return launches
+
+
 def _drive(config, unit="samples"):
     """Run ``config`` through ``init → device → data → model →
     FedMLRunner(...).run()`` with the launch counts set to 0 just before
@@ -1343,7 +1612,146 @@ def cross_silo_phase(n, codec_round_s):
     return runs[0]["launches"]
 
 
-def trace_phase(n, what, one_client_round, nb):
+def fed_llm_phase(n):
+    """The fed-LLM main path, raw then with the int8 wire (the two compare
+    inside one call), each through ``init → device → data → model →
+    FedMLRunner(...).run()`` with the launch counts set to 0 just before
+    and read just after.  Per round the protocol implies, with N silos: one
+    fold and one weighted reduce (the deltas' ``[N, 11,112]`` stack), the
+    flash kernel once per layer of every eval batch (training at dropout
+    0.1 takes the plain attention), and on the int8 wire N + 1 quantize and
+    3N + 1 dequantize.  The eval's seconds are the server's
+    ``FedLLMAggregator.test`` calls, timed by a wrapper for this phase
+    only.  Checks: the server's eval loss finite, its last value below the
+    first and below ln 90 (a uniform guess over the vocabulary), and the
+    raw uplink at least 20x smaller than the full model's variables."""
+    runs = []
+    eval_s = []
+    plain_test = FedLLMAggregator.test
+
+    def timed_test(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_test(self, *a, **kw)
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    last = None
+    for turn, (codec, wire) in enumerate((("raw", None), ("int8", "int8"))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eval_s.clear()
+        reset_launches()
+        run_id = f"smoke_fed_llm_{codec}_{turn}"
+        t0 = time.perf_counter()
+        args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
+            **FED_LLM_CONFIG, run_id=run_id, wire_compression=wire))
+        device = fedml_tpu_torch.device.get_device(args)
+        dataset = fedml_tpu_torch.data.load(args)
+        t_data = time.perf_counter() - t0
+        bundle = fedml_tpu_torch.model.create(args, dataset[-1])
+        runner = FedMLRunner(args, device, dataset, bundle)
+        FedLLMAggregator.test = timed_test
+        try:
+            final = runner.run()
+        finally:
+            FedLLMAggregator.test = plain_test
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total = time.perf_counter() - t0
+        server = runner.runner.server
+        hist = server.round_history
+        loss = final["server_loss_history"]
+        check(len(hist) == ROUNDS and len(loss) == ROUNDS,
+              f"{codec}: {len(hist)} rounds and {len(loss)} evals")
+        for h, l_ in zip(hist, loss):
+            print(f"    fed-LLM {codec} round {h['round']}: mean silo "
+                  f"train_loss {h['train_loss']:.6f}, {h['seconds']:.3f} s, "
+                  f"{h['samples']:.0f} sequences; server eval loss "
+                  f"{l_:.4f}", flush=True)
+        check(all(math.isfinite(x) for x in loss) and loss[-1] < loss[0]
+              and loss[-1] < math.log(90),
+              f"{codec}: server eval loss {loss} must be finite and fall "
+              f"below its start and below ln 90 = {math.log(90):.4f}")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(
+            server.aggregator.get_global_model_params())),
+            f"{codec}: non-finite global adapters")
+        n_eval = -(-len(dataset[3][1]) // int(args.batch_size))
+        want = {"fold_delta": ROUNDS, "weighted_reduce": ROUNDS,
+                "flash_attention": 2 * n_eval * ROUNDS,
+                "wire_compression.quantize":
+                    ROUNDS * (LLM_SILOS + 1) if wire else 0,
+                "wire_compression.dequantize":
+                    ROUNDS * (3 * LLM_SILOS + 1) if wire else 0,
+                "fused_epilogue": 0}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{codec}: {ROUNDS} rounds of {LLM_SILOS} silos "
+              f"launched {got}; the protocol implies {want}")
+        secs = sum(h["seconds"] for h in hist)
+        tokens = FED_LLM_TOKENS.for_run(run_id)
+        tok_s = {silo: tokens[silo] / FED_LLM_TRAIN_SECONDS.value(run_id,
+                                                                  silo)
+                 for silo in sorted(tokens)}
+        nbytes = WIRE_BYTES.for_run(run_id)
+        full = estimate_nbytes(tree_from_module(bundle.module))
+        up_codec = codec if wire else "raw"
+        per_upload = nbytes[("up", up_codec)] / (LLM_SILOS * ROUNDS)
+        reduction = full / per_upload
+        if not wire:
+            check(reduction >= 20.0, f"raw uplink only {reduction:.1f}x "
+                  f"smaller than the full model's {full} bytes")
+        runs.append(dict(codec=codec, launches=launches, bytes=nbytes,
+                         rounds_s=ROUNDS / secs, reduction=reduction))
+        phase(n, "main path", f"fed-LLM LoRA SFT over INPROC, "
+              f"{args.model} {args.compute_dtype} on {args.dataset}, "
+              f"{LLM_SILOS} silos, rank {args.lora_rank}, "
+              f"{final['adapter_params']} adapter params, wire {codec}, "
+              f"{ROUNDS} rounds (cut: 3 rounds at the JAX package's "
+              f"--federated --quick size, data_scale 0.5): "
+              f"{ROUNDS / secs:.3f} rounds/s "
+              f"({(ROUNDS - 1) / sum(h['seconds'] for h in hist[1:]):.3f} "
+              f"after round 0), train tokens/s per silo "
+              + ", ".join(f"{k} {v:.0f}" for k, v in tok_s.items())
+              + f", eval {statistics.median(eval_s):.3f} s per round "
+              f"({n_eval} batches), server eval loss "
+              + " -> ".join(f"{x:.4f}" for x in loss)
+              + f", test_acc {final['test_acc']:.4f}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, wire "
+              f"bytes " + ", ".join(f"{d} {c} {v}" for (d, c), v in
+                                    sorted(nbytes.items()))
+              + f", uplink {reduction:.1f}x smaller than the full model's "
+              f"{full} bytes, launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+              + f" (as the protocol implies), data {t_data:.1f} s, whole "
+              f"run {total:.1f} s")
+        last = (args, dataset, bundle)
+        runner = server = None
+    phase(n, "main path", f"fed-LLM raw / int8: rounds/s "
+          f"{runs[0]['rounds_s']:.3f} / {runs[1]['rounds_s']:.3f}, uplink "
+          f"reduction {runs[0]['reduction']:.1f}x / "
+          f"{runs[1]['reduction']:.1f}x against the full model, raw / int8 "
+          f"uplink bytes "
+          f"{runs[0]['bytes'][('up', 'raw')] / runs[1]['bytes'][('up', 'int8')]:.3f}x")
+    return runs[0]["launches"], last
+
+
+def trace_fed_llm(last):
+    """One silo's local epoch of the fed-LLM path (cut to the silo's first
+    64 sequences, so that the trace stays small): LoRA merge, forward,
+    backward, clip and adamw per step, under ``torch.profiler``."""
+    args, dataset, bundle = last
+    device = fedml_tpu_torch.device.get_device(args)
+    trainer = FedLLMTrainer(bundle, args, device)
+    trainer.set_id(0)
+    x = np.asarray(dataset[5][0][0])[:64]
+    steps = ((x.size - 1) // 32) // 4
+    trace_phase(13, f"one silo's local epoch of the fed-LLM path (its first "
+                f"64 sequences, {steps} steps)",
+                lambda: trainer.train((x, x)), steps, batch=4)
+
+
+def trace_phase(n, what, one_client_round, nb, batch=32):
     """``one_client_round`` — one client trained and aggregated by a main
     path's round code — timed once plainly and once under
     ``torch.profiler`` (same seed, same work): the device's busy time from
@@ -1374,7 +1782,7 @@ def trace_phase(n, what, one_client_round, nb):
     server = sum(us for name, us in by_name.items()
                  if "fused_epilogue" in name or "weighted_reduce" in name)
     flash = sum(us for name, us in by_name.items() if "flash_fwd" in name)
-    phase(n, "trace", f"{what} ({nb} batches of 32): wall {wall:.3f} s, "
+    phase(n, "trace", f"{what} ({nb} batches of {batch}): wall {wall:.3f} s, "
           f"device busy {busy:.3f} s ({busy / wall:.1%}; idle "
           f"{1 - busy / wall:.1%}), {len(kernels)} device activities "
           f"({len(kernels) / nb:.0f} per batch), server step (fused_epilogue"
@@ -1420,13 +1828,16 @@ def main():
     p_main, d_main, errs, fold_launches = kernel_phase(dev)
     errs["flash_attention"] = flash_kernel_phase(dev)
     errs.update(wire_kernel_phase(dev))
+    errs["fold_delta"] = fold_kernel_phase(dev)
     timing = timing_phase(dev, p_main, d_main, name)
     timing["flash_attention"] = flash_timing_phase(dev, name)
     wire_timing, codec_round_s = wire_timing_phase(dev, name)
     timing.update(wire_timing)
+    timing["fold_delta"] = fold_timing_phase(dev, name)
     parity = parity_phase(dev)
     lm_parity_phase(dev)
     cs_parity_phase(dev)
+    fed_llm_parity_phase(dev)
     # each main path's API is dropped before the next run, so that one's
     # peak memory is its own
     avg_launches = main_path_phase(6, "FedAvg")[0]
@@ -1437,12 +1848,16 @@ def main():
     trace_lm(api)
     api = None
     cs_launches = cross_silo_phase(11, codec_round_s)
+    llm_launches, last = fed_llm_phase(12)
+    trace_fed_llm(last)
+    last = None
     # launches, each from its own path: the weighted reduce from both
     # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
     # 3, the flash forward from the BERT-tiny path's eval passes, the wire
-    # kernels from the int8 cross-silo path
+    # kernels from the int8 cross-silo path, the fold from the fed-LLM path
     launches = {
+        "fold_delta": llm_launches["fold_delta"],
         "wire_compression.quantize": cs_launches["wire_compression.quantize"],
         "wire_compression.dequantize":
             cs_launches["wire_compression.dequantize"],

@@ -12,7 +12,9 @@ plus the one-liner ``fedml_tpu_torch.run_simulation()``.  Entry points run
 on the card unless ``device_type: cpu`` asks for the CPU.  The port imports
 torch and numpy, never JAX or ``fedml_tpu``; what it needs from the JAX
 package it carries as its own copy.  The ported slices are Parrot FedAvg
-and FedOpt on the CIFAR ResNets (see ROADMAP.md for what is still to come).
+and FedOpt on the CIFAR ResNets and on BERT-tiny, cross-silo FedAvg over
+INPROC and, on it, the fed-LLM plane (see ROADMAP.md for what is still to
+come).
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ data = _DataNS()
 
 def init(args: Optional[Config] = None, argv: Optional[list] = None,
          **overrides: Any) -> Config:
-    """Load the config, seed ``random``, numpy and torch, and set up
-    logging."""
+    """Load the config, seed ``random``, numpy and torch, set up logging,
+    and with ``fed_llm`` validate every fed-LLM flag, so a bad one fails
+    here, not mid-federation."""
     if args is None:
         args = load_arguments(argv=argv, extra=overrides or None)
     elif overrides:
@@ -60,6 +63,10 @@ def init(args: Optional[Config] = None, argv: Optional[list] = None,
         level=getattr(logging, str(getattr(args, "log_level", "INFO")).upper(),
                       logging.INFO),
         format="[fedml_tpu_torch %(levelname)s %(asctime)s] %(message)s")
+    if bool(getattr(args, "fed_llm", False)):
+        from .train.fed_llm import validate_fed_llm_args
+
+        validate_fed_llm_args(args)
     return args
 
 

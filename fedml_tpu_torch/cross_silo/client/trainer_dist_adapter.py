@@ -4,8 +4,10 @@ Port of ``fedml_tpu/cross_silo/client/trainer_dist_adapter.py`` for the
 horizontal scenario: it owns the silo's trainer, points it at the client
 index the server assigns each round, fixes the padded batch count for
 every silo (the largest silo's), and returns ``(params, n_samples)``.
-The hierarchical scenario (a data-parallel mesh inside a silo) is port
-item A11 and the fed-LLM trainer is A15: both raise.
+With ``fed_llm`` the silo's trainer is ``train/fed_llm.FedLLMTrainer``
+(local LoRA SFT; the exchanged parameters are the adapter tree).  The
+hierarchical scenario (a data-parallel mesh inside a silo) is port item
+A11 and raises.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ class TrainerDistAdapter:
                 "the hierarchical cross-silo scenario is not ported yet "
                 "(port item A11)")
         if client_trainer is None and bool(getattr(args, "fed_llm", False)):
-            raise NotImplementedError(
-                "the fed-LLM trainer is not ported yet (port item A15)")
+            from ...train.fed_llm import FedLLMTrainer
+            client_trainer = FedLLMTrainer(bundle, args, device)
         self.trainer = client_trainer or DefaultClientTrainer(bundle, args,
                                                               device)
         bs = int(getattr(args, "batch_size", 32))

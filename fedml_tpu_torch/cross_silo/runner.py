@@ -4,13 +4,19 @@ Port of ``fedml_tpu/cross_silo/runner.py`` for synchronous FedAvg over the
 INPROC transport: ``init_server`` and ``init_client`` build the manager
 pair, and ``LocalFederationRunner`` runs the server and one client
 manager per silo on threads over the in-process hub, so the whole message
-protocol runs in one process (``backend: INPROC``, any ``role``).
+protocol runs in one process (``backend: INPROC``, any ``role``).  With
+``fed_llm: true`` the pair is the fed-LLM plane's, as
+``fedml_tpu/cross_silo/runner.py:27-33`` and
+``client/trainer_dist_adapter.py:29-33`` swap it in: the server's
+aggregator is ``train/fed_llm.FedLLMAggregator`` and each silo's trainer a
+``FedLLMTrainer``, so only LoRA adapter trees cross the wire.
 
 Left out, each raising ``NotImplementedError`` naming its port item: the
 other transports and the single-role runner (A11), buffered-async rounds
-(A11), the aggregation hierarchy (A11), SecAgg and LightSecAgg (A13),
-algorithms other than FedAvg and robust aggregation (A9), the fed-LLM
-plane (A15), and custom client trainers or server aggregators.
+(A11, with the fed-LLM plane too), the aggregation hierarchy (A11), SecAgg
+and LightSecAgg (A13), algorithms other than FedAvg and robust aggregation
+(A9, with the fed-LLM plane too), and custom client trainers or server
+aggregators.
 
 Threads and the card: every silo thread trains on the one shared bundle
 under ``bundle.lock`` (``ml/trainer/default_trainer.py``), and runs under
@@ -59,18 +65,20 @@ def _check_algorithm(args: Any) -> None:
         raise NotImplementedError(
             "buffered-async rounds (async_agg) are not ported yet (port item "
             "A11)")
-    if bool(getattr(args, "fed_llm", False)):
-        raise NotImplementedError(
-            "the fed-LLM plane is not ported yet (port item A15)")
 
 
 def init_server(args: Any, device: torch.device, dataset: Tuple, bundle: Any,
                 backend: str = "INPROC") -> FedMLServerManager:
     """The server manager, its aggregator holding the bundle's own seeded
-    variables as the first global model."""
+    variables as the first global model — or, with ``fed_llm``, the
+    fed-LLM aggregator holding the seeded initial adapters."""
     _check_algorithm(args)
-    aggregator_impl = DefaultServerAggregator(bundle, args, device)
-    aggregator_impl.set_model_params(initial_params(bundle, device))
+    if bool(getattr(args, "fed_llm", False)):
+        from ..train.fed_llm import FedLLMAggregator
+        aggregator_impl = FedLLMAggregator(bundle, args, device)
+    else:
+        aggregator_impl = DefaultServerAggregator(bundle, args, device)
+        aggregator_impl.set_model_params(initial_params(bundle, device))
     agg = FedMLAggregator(args, aggregator_impl, dataset[3])
     return FedMLServerManager(args, agg, rank=0, client_num=fleet_size(args),
                               backend=backend)

@@ -5,7 +5,17 @@ Port of ``fedml_tpu/ml/engine/optimizers.py``:
 * ``build_client_optimizer`` for the setting the north-star config uses:
   plain SGD at a constant learning rate (``optax.sgd(lr)``: ``p ← p +
   (−lr·g)``, in the parameter's dtype).  Momentum, weight decay, adam and
-  the lr schedules are not ported yet and raise.
+  the lr schedules are not ported yet for it and raise (port item A9).
+* ``make_lr`` — the learning rate or schedule: constant, cosine (optax's
+  ``warmup_cosine_decay_schedule``) and linear (``linear_schedule``, with
+  a warmup leg through ``join_schedules``, which rebases the step count at
+  its boundary), each evaluated in float32 as optax evaluates it.
+* ``LLMOptimizer`` — the LLM trainer's client chain,
+  ``clip_by_global_norm(grad_clip)`` then ``adamw(lr)`` at optax's
+  defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every leaf),
+  wrapped in ``MultiSteps`` gradient accumulation when
+  ``grad_accum_steps`` > 1.  ``torch.optim.AdamW`` places eps and the
+  decay elsewhere, so the chain is written out in optax's order.
 * ``build_server_optimizer``, FedOpt's server optimizer on the unfused arm
   (yogi, adagrad, or ``fused_epilogue: false``): optax's ``adam``, ``yogi``,
   ``adagrad`` and ``sgd`` (with or without momentum), in plain PyTorch on
@@ -18,7 +28,8 @@ Port of ``fedml_tpu/ml/engine/optimizers.py``:
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -147,3 +158,165 @@ def build_server_optimizer(cfg: Any) -> ServerOptimizer:
     if name == "adagrad":
         return _adagrad(lr)
     return _sgd(lr, momentum if momentum > 0 else 0.0)
+
+
+# ----------------------------------------------------------- LLM client chain
+Schedule = Callable[[int], float]
+
+
+def _polynomial(init: float, end: float, steps: int) -> Schedule:
+    """``optax.polynomial_schedule`` at power 1 (``linear_schedule``), in
+    float32: ``(init − end)·(1 − clip(count, 0, steps)/steps) + end``."""
+    if steps <= 0:
+        return lambda count: float(np.float32(init))
+
+    def schedule(count: int) -> float:
+        c = np.float32(min(max(int(count), 0), steps))
+        frac = np.float32(1.0) - c / np.float32(steps)
+        return float(np.float32(init - end) * frac + np.float32(end))
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int) -> Schedule:
+    """``optax.cosine_decay_schedule`` (alpha 0, exponent 1), in float32:
+    ``init · 0.5·(1 + cos(π·min(count, T)/T))``."""
+
+    def schedule(count: int) -> float:
+        c = np.minimum(np.float32(count), np.float32(decay_steps))
+        cos = np.cos(np.float32(math.pi) * c / np.float32(decay_steps))
+        decayed = np.float32(0.5) * (np.float32(1.0) + cos)
+        return float(np.float32(init) * decayed)
+
+    return schedule
+
+
+def _join(schedules: List[Schedule], boundaries: List[int]) -> Schedule:
+    """``optax.join_schedules``: past each boundary the next schedule runs
+    on the step count rebased to that boundary."""
+
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def make_lr(cfg: Any) -> Union[float, Schedule]:
+    """Learning rate or schedule of ``cfg``: ``lr_schedule`` "constant"
+    (default; the float itself) | "cosine" | "linear", with
+    ``warmup_steps`` and ``lr_decay_steps`` counting optimizer steps.  A
+    schedule maps the step count to the float32 rate."""
+    lr = float(getattr(cfg, "learning_rate", 0.03))
+    kind = str(getattr(cfg, "lr_schedule", "constant") or "constant").lower()
+    if kind == "constant":
+        return lr
+    warmup = int(getattr(cfg, "warmup_steps", 0) or 0)
+    decay = int(getattr(cfg, "lr_decay_steps", 1000) or 1000)
+    if kind == "cosine":
+        w = max(warmup, 1)
+        d = max(decay, warmup + 1)
+        if not d - w > 0:
+            raise ValueError(f"cosine schedule needs lr_decay_steps > "
+                             f"warmup_steps, got {decay} and {warmup}")
+        return _join([_polynomial(0.0, lr, w), _cosine(lr, d - w)], [w])
+    if kind == "linear":
+        sched = _polynomial(lr, 0.0, max(decay - warmup, 1))
+        if warmup:
+            return _join([_polynomial(0.0, lr, warmup), sched], [warmup])
+        return sched
+    raise ValueError(f"unknown lr_schedule {kind!r}; "
+                     f"known: constant, cosine, linear")
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> List[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the leaves as they are while their
+    global norm is below ``max_norm``, else ``g / norm · max_norm``, chosen
+    on the device (no host sync)."""
+    sums = torch.stack([s.sum() for s in torch._foreach_mul(grads, grads)])
+    norm = torch.sqrt(sums.sum())
+    keep = norm < _f32(max_norm)
+    return [torch.where(keep, g, g / norm * _f32(max_norm)) for g in grads]
+
+
+class LLMOptimizer:
+    """``[MultiSteps(k)](chain(clip_by_global_norm(grad_clip),
+    adamw(lr)))`` on a list of float32 leaves, updated in place.
+
+    ``init(params)`` → state; ``step(params, grads, state)`` applies one
+    mini-step: the gradient joins the running mean of the accumulation
+    window (``acc + (g − acc)/(n + 1)``), and on the window's last
+    mini-step the chain runs on that mean — clip, adam's moments, bias
+    corrections and ``m̂ / (sqrt(v̂ + 0) + eps)``, ``+ wd·p``, ``× −lr``
+    — and ``p + u`` lands.  Python-float constants meet float32 tensors
+    rounded to float32, as JAX's weakly typed scalars do; the schedule's
+    count is the number of updates applied."""
+
+    def __init__(self, learning_rate: Union[float, Schedule],
+                 grad_clip: float = 1.0, accum_steps: int = 1,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4) -> None:
+        self.lr = learning_rate
+        self.grad_clip = float(grad_clip)
+        self.k = max(1, int(accum_steps))
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: List[torch.Tensor]) -> State:
+        zeros = [torch.zeros_like(p) for p in params]
+        return {"count": 0, "mu": zeros,
+                "nu": [torch.zeros_like(p) for p in params],
+                "mini_step": 0,
+                "acc": [torch.zeros_like(p) for p in params]
+                if self.k > 1 else None}
+
+    def _rate(self, count: int) -> float:
+        lr = self.lr(count) if callable(self.lr) else self.lr
+        return _f32(-lr)
+
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             state: State) -> None:
+        with torch.no_grad():
+            if self.k > 1:
+                n = state["mini_step"]
+                acc = torch._foreach_add(state["acc"], torch._foreach_div(
+                    torch._foreach_sub(grads, state["acc"]), float(n + 1)))
+                if n < self.k - 1:
+                    state["acc"], state["mini_step"] = acc, n + 1
+                    return
+                grads = acc
+                state["acc"] = [torch.zeros_like(p) for p in params]
+                state["mini_step"] = 0
+            g = clip_by_global_norm(list(grads), self.grad_clip)
+            mu = torch._foreach_add(torch._foreach_mul(g, _f32(1 - self.b1)),
+                                    torch._foreach_mul(state["mu"],
+                                                       _f32(self.b1)))
+            nu = torch._foreach_add(
+                torch._foreach_mul(torch._foreach_mul(g, g),
+                                   _f32(1 - self.b2)),
+                torch._foreach_mul(state["nu"], _f32(self.b2)))
+            count = int(state["count"]) + 1
+            mu_hat = torch._foreach_div(mu, _bias_correction(self.b1, count))
+            nu_hat = torch._foreach_div(nu, _bias_correction(self.b2, count))
+            den = torch._foreach_add(torch._foreach_sqrt(
+                torch._foreach_add(nu_hat, 0.0)), _f32(self.eps))
+            u = torch._foreach_div(mu_hat, den)
+            u = torch._foreach_add(u, torch._foreach_mul(
+                params, _f32(self.weight_decay)))
+            u = torch._foreach_mul(u, self._rate(count - 1))
+            torch._foreach_add_(params, u)
+            state.update(count=count, mu=mu, nu=nu)
+
+
+def build_llm_optimizer(cfg: Any) -> LLMOptimizer:
+    """The LLM trainer's chain for ``cfg`` (an ``LLMTrainConfig``):
+    ``learning_rate`` through ``make_lr``, ``grad_clip`` and
+    ``grad_accum_steps``."""
+    return LLMOptimizer(make_lr(cfg),
+                        grad_clip=float(getattr(cfg, "grad_clip", 1.0)),
+                        accum_steps=int(getattr(cfg, "grad_accum_steps", 1)
+                                        or 1))

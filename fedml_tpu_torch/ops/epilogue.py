@@ -8,7 +8,10 @@ Port of ``fedml_tpu/ops/epilogue.py``:
 * ``EpilogueSpec``, ``NONE_SPEC``, ``spec_from_args``, ``init_opt_state``
   and ``fused_epilogue`` with its Pallas ``_mix_kernel``, ``_sgd_kernel``,
   ``_momentum_kernel`` and ``_adam_kernel`` — one kernel template over the
-  four channels, ``csrc/fused_epilogue.cu``.
+  four channels, ``csrc/fused_epilogue.cu``;
+* ``fold_delta`` and its Pallas ``_delta_kernel``, the fed-LLM adapter
+  fold — ``csrc/fold_delta.cu``, one launch per adapter dtype over a table
+  of the leaves.
 
 Both are CUDA C++ for ``sm_90a``, built and bound by ``ops/cuda_build.py``;
 each source's note says what bounds it and how the design answers that.
@@ -19,6 +22,9 @@ Contracts (the JAX package's):
   accumulated in float32 and cast back to the input dtype; a non-float input
   gives float32.  Weights need not be normalised; weight 0 masks a client
   out.
+* ``fold_delta``: ``tree + server_lr · delta`` per leaf, ``(a_f32 +
+  lr_f32 · d_f32)`` cast to the leaf's dtype — the product rounded before
+  the sum, as the JAX package's jnp fallback rounds it.
 * ``fused_epilogue``: the same reduce, cast to the stacked dtype and back to
   float32 (``_acc_tile``'s double rounding), then in float32 one channel —
   ``none``: ``g + s·(acc − g)`` (``mix_global``); ``sgd``/``momentum``/
@@ -42,17 +48,18 @@ is one ``fused_epilogue`` over the parameter columns and one
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 from . import cuda_build
 
 _OPT_CODES = {"none": 0, "sgd": 1, "momentum": 2, "adam": 3}
 #: launches of each CUDA kernel of this module, counted where the wrapper
 #: launches it: ``fused_epilogue`` by optimizer channel
-LAUNCHES = {"weighted_reduce": 0,
+LAUNCHES = {"weighted_reduce": 0, "fold_delta": 0,
             **{f"fused_epilogue.{opt}": 0 for opt in _OPT_CODES}}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -123,6 +130,18 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         lib.fedml_weighted_reduce.restype = i
         lib.fedml_weighted_reduce_max_clients.argtypes = []
         lib.fedml_weighted_reduce_max_clients.restype = i
+    elif name == "fold_delta":
+        lib.fedml_fold_delta.argtypes = [vp, vp, vp, vp, i, ll,
+                                         ctypes.c_float, i, i, vp]
+        lib.fedml_fold_delta.restype = i
+        lib.fedml_fold_delta_chunk.argtypes = []
+        lib.fedml_fold_delta_chunk.restype = i
+        lib.fedml_fold_delta_table_cols.argtypes = []
+        lib.fedml_fold_delta_table_cols.restype = i
+        if (lib.fedml_fold_delta_chunk() != FOLD_CHUNK
+                or lib.fedml_fold_delta_table_cols() != 5):
+            raise RuntimeError("fold_delta: the kernel's chunk or table "
+                               "differs from the wrapper's")
     else:
         lib.fedml_fused_epilogue.argtypes = [vp, ll, vp, i, vp, vp, vp, vp,
                                              ll, i, i, i, vp, i, vp]
@@ -432,3 +451,193 @@ def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
     _check_launch(rc, lib, "fused_epilogue")
     LAUNCHES[f"fused_epilogue.{spec.opt}"] += 1
     return out, _new_state(spec.opt, opt_state, st.t)
+
+
+# ---------------------------------------------------------------- delta fold
+#: values per block of the fold kernel; each leaf's chunks restart at its
+#: first value
+FOLD_CHUNK = 1024
+#: device copies of fold segment tables, by (device, rows): the adapters'
+#: layout repeats every round
+_fold_tables: Dict[Tuple[str, Tuple[Tuple[int, ...], ...]], torch.Tensor] = {}
+_FOLD_TABLE_CACHE = 64
+
+
+def flat_tree(tree: Any, device: Any = None) -> Any:
+    """A copy of ``tree`` whose tensor leaves of each dtype are views into
+    one new contiguous buffer, in flatten order — the layout the fold
+    kernel takes in one launch per dtype.  On ``device`` when given, else
+    on the leaves' own."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return tree_unflatten(tree_structure(tree), [])
+    dev = torch.device(device) if device is not None else leaves[0].device
+    sizes: Dict[torch.dtype, int] = {}
+    for leaf in leaves:
+        sizes[leaf.dtype] = sizes.get(leaf.dtype, 0) + leaf.numel()
+    bufs = {dt: torch.empty(n, dtype=dt, device=dev)
+            for dt, n in sizes.items()}
+    offs = {dt: 0 for dt in sizes}
+    out = []
+    for leaf in leaves:
+        n = leaf.numel()
+        view = bufs[leaf.dtype][offs[leaf.dtype]:offs[leaf.dtype] + n]
+        view = view.view(leaf.shape)
+        view.copy_(leaf.detach())
+        offs[leaf.dtype] += n
+        out.append(view)
+    return tree_unflatten(tree_structure(tree), out)
+
+
+def fold_delta_reference(tree: Any, delta: Any, server_lr: Any) -> Any:
+    """The plain version of ``fold_delta``: the JAX package's jnp fallback
+    (``fedml_tpu/ops/epilogue.py:449-451``) leaf by leaf — the rate
+    rounded to float32, ``a_f32 + lr · d_f32`` as a product then a sum,
+    cast to the leaf's dtype."""
+    lr = _f32(float(server_lr))
+    leaves = [(a.float() + lr * d.float()).to(a.dtype)
+              for a, d in zip(tree_leaves(tree), tree_leaves(delta))]
+    return tree_unflatten(tree_structure(tree), leaves)
+
+
+def _segments(leaves: List[torch.Tensor]
+              ) -> Tuple[int, List[int], Optional[torch.Tensor]]:
+    """(base pointer, element offsets, packed copy) of ``leaves``: their
+    shared storage and each leaf's place in it when they are contiguous
+    views into one storage (no copy); otherwise one new buffer holding
+    them packed, which the caller keeps until the launch."""
+    storage = leaves[0].untyped_storage().data_ptr()
+    if all(leaf.is_contiguous()
+           and leaf.untyped_storage().data_ptr() == storage
+           for leaf in leaves):
+        return storage, [int(leaf.storage_offset()) for leaf in leaves], None
+    packed = torch.cat([leaf.reshape(-1) for leaf in leaves])
+    offs, off = [], 0
+    for leaf in leaves:
+        offs.append(off)
+        off += leaf.numel()
+    return packed.data_ptr(), offs, packed
+
+
+def _fold_table(rows: Tuple[Tuple[int, ...], ...],
+                device: torch.device) -> torch.Tensor:
+    key = (str(device), rows)
+    table = _fold_tables.get(key)
+    if table is None:
+        table = torch.tensor(rows, dtype=torch.int64, device=device)
+        if len(_fold_tables) >= _FOLD_TABLE_CACHE:
+            _fold_tables.pop(next(iter(_fold_tables)))
+        _fold_tables[key] = table
+    return table
+
+
+def _leaf_pairs(tree: Any, other: Any, what: str) -> List[Tuple[Any, Any]]:
+    """The leaves of ``tree`` paired with those of ``other`` at the same
+    places; raises ``ValueError`` unless the two trees have one structure
+    and the paired leaves one shape."""
+    pairs: List[Tuple[Any, Any]] = []
+    try:
+        tree_map(lambda a, b: pairs.append((a, b)), tree, other)
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"fold_delta: {what} is another tree than the "
+                         f"adapters") from e
+    if len(pairs) != len(tree_leaves(other)) or any(
+            a.shape != b.shape for a, b in pairs):
+        raise ValueError(f"fold_delta: {what} is another tree than the "
+                         f"adapters, or its leaves have other shapes")
+    return pairs
+
+
+def fold_delta(tree: Any, delta: Any, server_lr: Any, *,
+               out: Any = None) -> Any:
+    """``tree + server_lr · delta`` leaf by leaf — the fed-LLM adapter
+    fold: ``(a_f32 + lr · d_f32)`` cast to each leaf's dtype, ``lr`` the
+    rate rounded to float32.
+
+    ``tree``: adapter leaves, float32 or bfloat16; ``delta``: float32
+    leaves of the same shapes, in a tree of the same structure.  Returns a
+    tree of that structure whose leaves of one dtype are views into one new
+    buffer (``flat_tree``'s layout), or, given ``out`` (a tree of the same
+    structure whose leaves of one dtype lie in one buffer, ``tree`` itself
+    for a fold in place), writes there and returns it.
+
+    On a card, one kernel launch per adapter dtype covers all its leaves:
+    leaves that are contiguous views into one buffer are read where they
+    lie, others are first packed into one buffer (a copy).  CPU tensors
+    take ``fold_delta_reference``; anything else the kernel does not take
+    raises."""
+    pairs = _leaf_pairs(tree, delta, "the delta")
+    a_leaves = [a for a, _ in pairs]
+    d_leaves = [d for _, d in pairs]
+    o_leaves = None
+    if out is not None:
+        o_leaves = [o for _, o in _leaf_pairs(tree, out, "out")]
+        if any(o.dtype != a.dtype for o, a in zip(o_leaves, a_leaves)):
+            raise ValueError("fold_delta: out must have the adapters' "
+                             "dtypes")
+    every = a_leaves + d_leaves + (o_leaves or [])
+    if _on_cpu(*every):
+        ref = fold_delta_reference(tree, delta, server_lr)
+        if out is None:
+            return flat_tree(ref)
+        for o, r in zip(o_leaves, tree_leaves(ref)):
+            o.copy_(r)
+        return out
+    if not a_leaves:
+        return tree_map(lambda a: a, tree)
+    dev = a_leaves[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in every):
+        raise ValueError(f"fold_delta: leaves on "
+                         f"{sorted({str(t.device) for t in every})}; all "
+                         f"must be on the CPU or on one card")
+    for a in a_leaves:
+        if a.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"fold_delta kernel takes float32 or bfloat16 "
+                            f"adapters, not {a.dtype}")
+    for d in d_leaves:
+        if d.dtype != torch.float32:
+            raise TypeError(f"fold_delta kernel takes a float32 delta, not "
+                            f"{d.dtype}")
+    lr = _f32(float(server_lr))
+    lib = _kernel_lib("fold_delta")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    device_index = _device_index(a_leaves[0])
+    results: List[Optional[torch.Tensor]] = list(o_leaves or a_leaves)
+    for dtype in dict.fromkeys(a.dtype for a in a_leaves):
+        idx = [i for i, a in enumerate(a_leaves)
+               if a.dtype == dtype and a.numel()]
+        if o_leaves is None:
+            for i, a in enumerate(a_leaves):
+                if a.dtype == dtype and not a.numel():
+                    results[i] = torch.empty_like(a)
+        if not idx:
+            continue
+        sizes = [a_leaves[i].numel() for i in idx]
+        a_ptr, a_offs, a_keep = _segments([a_leaves[i] for i in idx])
+        d_ptr, d_offs, d_keep = _segments([d_leaves[i] for i in idx])
+        if o_leaves is None:
+            o_base = torch.empty(sum(sizes), dtype=dtype, device=dev)
+            o_ptr, o_offs = o_base.data_ptr(), np.cumsum([0] + sizes[:-1])
+        else:
+            o_ptr, o_offs, o_keep = _segments([o_leaves[i] for i in idx])
+            if o_keep is not None:
+                raise ValueError("fold_delta: out leaves of one dtype must "
+                                 "be contiguous views into one buffer")
+        rows, chunk = [], 0
+        for n, ao, do, oo in zip(sizes, a_offs, d_offs, o_offs):
+            rows.append((ao, do, int(oo), n, chunk))
+            chunk += -(-n // FOLD_CHUNK)
+        table = _fold_table(tuple(rows), dev)
+        rc = lib.fedml_fold_delta(a_ptr, d_ptr, o_ptr, table.data_ptr(),
+                                  len(rows), chunk, lr, _DTYPE_CODES[dtype],
+                                  device_index, stream)
+        del a_keep, d_keep      # packed copies: freed in stream order
+        _check_launch(rc, lib, "fold_delta")
+        LAUNCHES["fold_delta"] += 1
+        if o_leaves is None:
+            for i, part in zip(idx, torch.split(o_base, sizes)):
+                results[i] = part.view(a_leaves[i].shape)
+    if out is not None:
+        return out
+    it = iter(results)
+    return tree_map(lambda _: next(it), tree)

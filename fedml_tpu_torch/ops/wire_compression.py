@@ -285,10 +285,13 @@ def dequantize_int8_blocked(q: torch.Tensor, scales: torch.Tensor, d: int,
 def topk_select(flat: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k(|x|) of a flat f32 update → (values f32 ``[k]``, indices int32
-    ``[k]``), largest magnitude first.  Ties in ``|x|`` may come out in
-    another order than ``jax.lax.top_k``'s."""
+    ``[k]``), largest magnitude first and, among equal magnitudes, the
+    lower index first — ``jax.lax.top_k``'s contract, so ties at the k-th
+    magnitude select the same coordinates.  A stable descending sort of
+    ``|x|`` gives that order on the CPU and on a card alike;
+    ``torch.topk`` leaves the order of ties open."""
     k = max(1, min(int(k), int(flat.numel())))
-    _, idx = torch.topk(flat.abs(), k)
+    idx = torch.sort(flat.abs(), descending=True, stable=True).indices[:k]
     return flat[idx], idx.to(torch.int32)
 
 

@@ -19,6 +19,14 @@ by path and layout:
 
 Trees cross as numpy arrays, so neither side imports the other.
 
+LoRA adapters (``train/llm/lora.py``) are trees of their own, ``{flax
+path of the kernel: {"a": [d_in, r], "b": [r, d_out]}}`` in flax's
+layout on both sides: ``adapters_from_jax`` and ``adapters_to_jax`` carry
+them across as they are.  ``named_tensors_from_tree`` turns a variables
+tree into the module's own names and layouts (views, so a gradient flows
+back into the tree's leaves), the parameters ``torch.func.functional_call``
+takes.
+
 FedOpt's server state crosses the same way (``opt_state_from_jax`` and
 ``opt_state_to_jax``).  The JAX package keeps it as trees shaped like
 ``params``: the fused epilogue's ``{"m", "v", "t"}`` (``m`` alone for
@@ -252,4 +260,51 @@ def opt_state_to_jax(state: Dict[torch.dtype, Any],
                 flat_vars)
         else:
             out[key] = np.asarray(val, np.int32)
+    return out
+
+
+# ------------------------------------------------------------ LoRA adapters
+def adapters_from_jax(np_tree: Dict[str, Any], device: Any = "cpu",
+                      dtype: Any = None) -> Dict[str, Any]:
+    """A JAX adapter tree (numpy leaves) as the port's: the same keys and
+    layouts, tensors on ``device`` (in their own dtype, or ``dtype``), the
+    leaves of each dtype views into one flat buffer."""
+    from ..ops.epilogue import flat_tree
+
+    def conv(a: Any) -> torch.Tensor:
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        return t if dtype is None else t.to(dtype)
+
+    tree = {path: {k: conv(v) for k, v in ab.items()}
+            for path, ab in np_tree.items()}
+    return flat_tree(tree, device)
+
+
+def adapters_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse: numpy leaves (float32 adapters as float32, bfloat16 as
+    float32 holding the same values)."""
+    return {path: {k: v.detach().float().cpu().numpy() for k, v in ab.items()}
+            for path, ab in tree.items()}
+
+
+def named_tensors_from_tree(tree: Dict[str, Any], model: nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """``{torch name: tensor}`` of every leaf of ``tree`` (a variables tree
+    ``{"params": ...}`` in the flax names and layouts) that ``model`` has,
+    in the module's layouts: permuted views of the tree's tensors, so
+    autograd reaches the tree's leaves through them.  Leaves the tree
+    lacks are left out (``functional_call`` then takes the module's
+    own)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, _, coll, path, _, from_flax in _leaf_map(model):
+        try:
+            leaf = _get(tree, (coll,) + path)
+        except KeyError:
+            continue
+        out[name] = leaf.permute(from_flax) if from_flax is not None \
+            else leaf
     return out

@@ -155,7 +155,9 @@ UNPORTED = [
     (dict(enable_attack=True), "A13"),
     (dict(enable_defense=True), "A13"),
     (dict(enable_contribution=True), "A13"),
-    (dict(fed_llm=True), "A15"),
+    # the fed-LLM plane itself is ported (tests/test_torch_fed_llm.py);
+    # its functional-LM model is A15's remainder
+    (dict(fed_llm=True, model="functional_lm"), "A15"),
     (dict(flight_recorder=True), "A18"),
     (dict(run_ledger=True), "A18"),
     (dict(slo_rules="slo.yaml"), "A18"),

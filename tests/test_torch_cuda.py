@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-weighted reduce, the fused epilogue, the flash-attention forward and the
-int8 wire codec's quantize and dequantize (bit for bit).  Every test here needs an NVIDIA card and ``nvcc``: the kernel has no
-CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
+weighted reduce, the fused epilogue, the flash-attention forward, the
+int8 wire codec's quantize and dequantize and top-k selection on ties, and
+the fed-LLM adapter fold (bit for bit), and one fed-LLM round on the card
+against the same round on the CPU.  Every test here needs an NVIDIA card
+and ``nvcc``: the kernel has no CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,6 +11,8 @@ package, so it runs on a machine without them:
 Tolerances as in ``tests/test_torch_epilogue.py``: float32 at
 ``atol=rtol=2e-6`` (sums in another order), bfloat16 at one bfloat16 step.
 """
+
+import math
 
 import pytest
 import torch
@@ -561,3 +565,202 @@ def test_wire_kernels_refuse_what_they_do_not_take(card):
         wc.dequantize_int8_blocked(q, s.cpu(), 600)
     with pytest.raises(ValueError):
         wc.quantize_int8_blocked(torch.ones(600, device=card), [300, 200])
+
+
+# ------------------------------------------------ top-k ties (the wire codec)
+def _tied_delta(seed=7):
+    """4,096 float32 values of four magnitudes with random signs: the k-th
+    largest |x| of ``topk:0.1`` falls inside a run of ties."""
+    gen = torch.Generator().manual_seed(seed)
+    mags = torch.tensor([0.5, 0.25, 2.0 ** -6, 2.0 ** -10])
+    sign = torch.where(torch.rand(4096, generator=gen) < 0.5, -1.0, 1.0)
+    return mags[torch.randint(0, 4, (4096,), generator=gen)] * sign
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["topk:0.1", "topk8:0.1"])
+def test_topk_ties_select_on_the_card_what_the_cpu_selects(spec, card):
+    """On ties the card selects the CPU's coordinates in the CPU's order
+    (the CPU is held to ``jax.lax.top_k`` by the CPU tests): indices,
+    values and the error-feedback residual bit for bit over three
+    encodes."""
+    x = _tied_delta()
+    got_v, got_i = wc.topk_select(x.to(card), 409)
+    want_v, want_i = wc.topk_select(x, 409)
+    _bits_equal(got_i, want_i)
+    _bits_equal(got_v, want_v)
+    ref = {"w": torch.zeros(4096)}
+    on_card, on_cpu = WireCodec(spec), WireCodec(spec)
+    for step in range(3):
+        update = {"w": _tied_delta(8 + step)}
+        got = on_card.encode_delta(tree_map(lambda t: t.to(card), update),
+                                   tree_map(lambda t: t.to(card), ref))
+        want = on_cpu.encode_delta(update, ref)
+        for k in ("idx", "values", "values_q", "scales"):
+            if k in want:
+                _bits_equal(got[k], want[k])
+        _bits_equal(on_card._residual, on_cpu._residual)
+
+
+# ------------------------------------------------------ the adapter fold (B6)
+#: (d_in, d_out) of TinyTransformerLM's five LoRA targets
+LORA_TARGETS = [(128, 90), (128, 512), (512, 128), (128, 512), (512, 128)]
+
+
+def _adapter_tree(rank, dtype, card, seed, misalign=0):
+    """The BERT-tiny adapter table at ``rank`` (10 leaves) and a float32
+    delta of the same shapes, each a tree of views into one buffer;
+    ``misalign`` starts the adapters' buffer that many values in, so no
+    leaf is 16-byte aligned."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = []
+    for i, (d_in, d_out) in enumerate(LORA_TARGETS):
+        shapes += [(f"t{i}", "a", (d_in, rank)), (f"t{i}", "b", (rank, d_out))]
+    total = sum(math.prod(s) for _, _, s in shapes)
+    a_buf = (torch.randn(total + misalign, generator=gen) * 0.01).to(dtype)
+    d_buf = torch.randn(total, generator=gen) * 1e-3
+    a_buf, d_buf = a_buf.to(card), d_buf.to(card)
+    a, d, off = {}, {}, 0
+    for path, k, shape in shapes:
+        n = math.prod(shape)
+        a.setdefault(path, {})[k] = a_buf[misalign + off:
+                                          misalign + off + n].view(shape)
+        d.setdefault(path, {})[k] = d_buf[off:off + n].view(shape)
+        off += n
+    return a, d
+
+
+FOLD_CASES = {
+    f"{name}_{dt_name}_lr{lr}": (rank, dt, lr, mis)
+    for name, rank, mis in (("rank4", 4, 0), ("rank3", 3, 0),
+                            ("misaligned", 4, 1))
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for lr in (0.0, 1.0, 0.37)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_fold_delta_matches_plain_version_bit_for_bit(name, card):
+    """Kernel B6 against ``fold_delta_reference`` on the same card tensors:
+    rank 4 (BERT-tiny's 10 leaves, 11,112 values), rank 3 (leaves that are
+    no multiples of 4) and a buffer whose leaves start misaligned, float32
+    and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37 — one launch, equal
+    bits."""
+    rank, dtype, lr, mis = FOLD_CASES[name]
+    a, d = _adapter_tree(rank, dtype, card, seed=len(name), misalign=mis)
+    before = epilogue.LAUNCHES["fold_delta"]
+    got = epilogue.fold_delta(a, d, lr)
+    torch.cuda.synchronize()
+    assert epilogue.LAUNCHES["fold_delta"] == before + 1
+    want = epilogue.fold_delta_reference(a, d, lr)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        _bits_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_fold_delta_in_place_and_mixed_dtypes(card):
+    """``out`` = the adapters folds in place; a tree of float32 and
+    bfloat16 leaves takes one launch per dtype; leaves that are not views
+    of one buffer are packed first and still folded in one launch."""
+    a, d = _adapter_tree(4, torch.float32, card, seed=1)
+    want = epilogue.fold_delta_reference(a, d, 0.37)
+    before = epilogue.LAUNCHES["fold_delta"]
+    same = epilogue.fold_delta(a, d, 0.37, out=a)
+    torch.cuda.synchronize()
+    assert same is a and epilogue.LAUNCHES["fold_delta"] == before + 1
+    for g, w in zip(tree_leaves(a), tree_leaves(want)):
+        _bits_equal(g, w)
+    mixed = {"x": {"a": a["t0"]["a"].clone(),
+                   "b": a["t0"]["b"].to(torch.bfloat16)},
+             "y": {"a": a["t1"]["a"].clone(), "b": a["t1"]["b"].clone()}}
+    dm = {"x": d["t0"], "y": d["t1"]}
+    before = epilogue.LAUNCHES["fold_delta"]
+    got = epilogue.fold_delta(mixed, dm, 1.0)
+    torch.cuda.synchronize()
+    assert epilogue.LAUNCHES["fold_delta"] == before + 2
+    for g, w in zip(tree_leaves(got),
+                    tree_leaves(epilogue.fold_delta_reference(mixed, dm,
+                                                              1.0))):
+        _bits_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_fold_delta_refuses_what_it_does_not_take(card):
+    """What the kernel does not take raises — it is never folded in plain
+    PyTorch on the card, and nothing is launched."""
+    a, d = _adapter_tree(4, torch.float32, card, seed=2)
+    before = epilogue.LAUNCHES["fold_delta"]
+    with pytest.raises(TypeError):
+        epilogue.fold_delta(tree_map(lambda t: t.half(), a), d, 1.0)
+    with pytest.raises(TypeError):
+        epilogue.fold_delta(a, tree_map(lambda t: t.bfloat16(), d), 1.0)
+    with pytest.raises(ValueError):
+        epilogue.fold_delta(a, tree_map(lambda t: t.cpu(), d), 1.0)
+    with pytest.raises(ValueError):
+        epilogue.fold_delta(a, {"t0": d["t0"]}, 1.0)
+    with pytest.raises(ValueError):
+        epilogue.fold_delta(a, d, 1.0,
+                            out=tree_map(lambda t: t.clone(), a))
+    assert epilogue.LAUNCHES["fold_delta"] == before
+
+
+def _fed_llm_round(device):
+    """One fed-LLM round over INPROC — 2 silos, the full-width
+    TinyTransformerLM at dropout 0 in float32, rank 4, seq 32, batch 4 —
+    through the five-step entry on ``device``, from the same seeded
+    variables: the final adapters, the metrics and the launch counts."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.ml.engine.model_bundle import TASK_LM, ModelBundle
+    from fedml_tpu_torch.models.nlp import TinyTransformerLM
+
+    args = fedml_tpu_torch.init(Config(
+        dataset="shakespeare", model="transformer",
+        training_type="cross_silo", backend="INPROC", role="simulated",
+        client_num_in_total=2, client_num_per_round=2, comm_round=1,
+        epochs=1, batch_size=4, learning_rate=3e-3, data_scale=0.05,
+        frequency_of_the_test=1, random_seed=0, fed_llm=True, lora_rank=4,
+        fed_llm_seq_len=32, compute_dtype="float32",
+        run_id=f"cuda_fed_llm_{device.type}", device_type=device.type))
+    dataset = fedml_tpu_torch.data.load(args)
+    bundle = ModelBundle(TinyTransformerLM(
+        dropout=0.0, generator=torch.Generator().manual_seed(0)), (80,), 90,
+        task=TASK_LM, input_dtype=torch.int32)
+    counts = (epilogue.LAUNCHES["fold_delta"],
+              epilogue.LAUNCHES["weighted_reduce"],
+              attn.LAUNCHES["flash_attention"])
+    runner = fedml_tpu_torch.FedMLRunner(args, device, dataset, bundle)
+    metrics = runner.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launched = (epilogue.LAUNCHES["fold_delta"] - counts[0],
+                epilogue.LAUNCHES["weighted_reduce"] - counts[1],
+                attn.LAUNCHES["flash_attention"] - counts[2])
+    final = runner.runner.server.aggregator.get_global_model_params()
+    return final, metrics, launched
+
+
+@pytest.mark.gpu
+def test_fed_llm_round_on_the_card_matches_the_cpu(card):
+    """One round card vs CPU from the same seeded model and adapters.  The
+    silos' adam moves every factor element by about lr per step whatever
+    its gradient's size, so an element whose gradient is at the level of
+    the two devices' summation-order noise can move another way: every
+    element within 2·lr·steps (0.006 × 31 steps), at least 99 % within
+    1e-4, the eval loss at ``rtol=1e-4``.  The card round launches the fold
+    once, the weighted reduce once and the flash kernel once per layer of
+    every forward pass at dropout 0: each training step's and each eval
+    batch's."""
+    from fedml_tpu_torch.train.fed_llm.trainer import FED_LLM_TOKENS
+
+    got, g_m, launched = _fed_llm_round(card)
+    want, c_m, _ = _fed_llm_round(torch.device("cpu"))
+    diffs = torch.cat([(g.cpu() - w).abs().reshape(-1) for g, w in
+                       zip(tree_leaves(got), tree_leaves(want))])
+    assert float(diffs.max()) <= 2 * 3e-3 * 31, float(diffs.max())
+    assert float((diffs <= 1e-4).float().mean()) >= 0.99
+    torch.testing.assert_close(g_m["test_loss"], c_m["test_loss"],
+                               rtol=1e-4, atol=0)
+    n_eval = -(-int(c_m["test_total"]) // (80 * 4))
+    steps = sum(FED_LLM_TOKENS.for_run("cuda_fed_llm_cuda").values()) \
+        // (32 * 4)
+    assert launched == (1, 1, 2 * (steps + n_eval)), launched

@@ -15,8 +15,10 @@ The ``WireCodec`` payloads (int8, bf16, topk, topk8), the error-feedback
 residual, the full-model encode and decode and the wire's flat order are
 held to the JAX package's the same way, on trees whose keys sort
 differently as strings than as numbers (``BasicBlock_10`` before
-``BasicBlock_2``).  Top-k inputs have no ties in ``|x|``: ``torch.topk``
-and ``jax.lax.top_k`` may order ties differently.
+``BasicBlock_2``).  The codec tests' top-k inputs have no ties in
+``|x|``; ``test_topk_ties_select_what_jax_selects`` holds the ties apart:
+4,096 values of four magnitudes, where ``jax.lax.top_k`` takes the lower
+index first among equal magnitudes and so must the port.
 """
 
 import jax
@@ -210,6 +212,38 @@ def test_topk_and_scatter_match_jax():
     _same_bits(got_i, want_i, "indices")
     _same_bits(wc.scatter_flat(got_v, got_i, 4000),
                jwc.scatter_flat(want_v, want_i, 4000), "scatter")
+
+
+def _tied_delta(seed=7):
+    """4,096 float32 values of four magnitudes with random signs: about
+    1,000 ties at every magnitude, so the k-th largest |x| of ``topk:0.1``
+    (k = 409) falls inside a run of ties."""
+    rng = np.random.default_rng(seed)
+    mags = np.array([0.5, 0.25, 2.0 ** -6, 2.0 ** -10], np.float32)
+    sign = np.where(rng.random(4096) < 0.5, -1.0, 1.0).astype(np.float32)
+    return mags[rng.integers(0, 4, 4096)] * sign
+
+
+@pytest.mark.parametrize("spec", ["topk:0.1", "topk8:0.1"])
+def test_topk_ties_select_what_jax_selects(spec):
+    """On ties at the k-th magnitude the port selects the coordinates JAX
+    selects, in JAX's order (largest first, the lower index first among
+    equals): indices, values and the error-feedback residual bit for bit,
+    over three encodes that carry the residual."""
+    x = _tied_delta()
+    want_v, want_i = jwc.topk_select(jnp.asarray(x), 409)
+    got_v, got_i = wc.topk_select(torch.from_numpy(x), 409)
+    _same_bits(got_i, want_i, "tied indices")
+    _same_bits(got_v, want_v, "tied values")
+    ref = {"w": np.zeros(4096, np.float32)}
+    jax_codec, port_codec = jcomp.WireCodec(spec), comp.WireCodec(spec)
+    for step in range(3):
+        update = {"w": _tied_delta(8 + step)}
+        want = jax_codec.encode_delta(_jax_tree(update), _jax_tree(ref))
+        got = port_codec.encode_delta(_torch_tree(update), _torch_tree(ref))
+        _same_payload(got, want, f"{spec} tied step {step}")
+        _same_bits(port_codec._residual, jax_codec._residual,
+                   f"{spec} tied residual after {step + 1}")
 
 
 # -------------------------------------------------------------- WireCodec
