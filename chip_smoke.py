@@ -26,10 +26,14 @@ raises and ends the run with a non-zero exit:
    the CPU's, bit for bit, and the fed-LLM adapter fold, bit for bit
    (float32 and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37, BERT-tiny's
    10-leaf rank-4 table, rank-3 leaves that are no multiples of 4, and a
-   misaligned buffer);
+   misaligned buffer), and the multi-client conv's forward and
+   weight-gradient kernels (the forward, dx through the forward kernel and
+   dw, at ``tests/test_mc_conv.py``'s five cases and ResNet-56's eight
+   conv shapes at 10 clients of batch 32, float32 and bfloat16);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
-   could take;
+   could take (the multi-client conv also beside the per-client loop of
+   library convs);
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
    and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
@@ -75,10 +79,19 @@ raises and ends the run with a non-zero exit:
     the protocol implies (the fold and the weighted reduce once a round,
     the flash kernel once per layer of every eval batch);
 13. trace — one silo's local epoch of that path under ``torch.profiler``,
-    as phases 8 and 10.
+    as phases 8 and 10;
+14. main path, multi-client conv — ResNet-56's 57 convolutions in network
+    order (with its ReLUs and residual adds, no BatchNorm) at 10 clients
+    with per-client weights, batch 32, bfloat16, forward and backward
+    through ``ops/pallas_mc_conv.conv_for_clients``: the launches the
+    shapes imply (109 forward kernels, 57 weight gradients, 4 library
+    input gradients), the pass in float32 and bfloat16 held to the same
+    pass in float64 (no farther from it than the per-client library
+    loop's), and its device time against that loop, the grouped library
+    call and its summed bound.
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9, 11 and 12) is driven with the kernels' launch counts set to 0 just
+9, 11, 12 and 14) is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -96,6 +109,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import fedml_tpu_torch
 from fedml_tpu_torch import FedMLRunner
@@ -109,6 +123,7 @@ from fedml_tpu_torch.models.cv import CIFARResNet
 from fedml_tpu_torch.models.nlp import TinyTransformerLM
 from fedml_tpu_torch.ops import cuda_build, epilogue
 from fedml_tpu_torch.ops import pallas_attention as attn
+from fedml_tpu_torch.ops import pallas_mc_conv as mcc
 from fedml_tpu_torch.ops import wire_compression as wc
 from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
 from fedml_tpu_torch.train.fed_llm import FedLLMAggregator, FedLLMTrainer
@@ -123,7 +138,7 @@ from fedml_tpu_torch.utils.weights import tree_from_module
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 13
+PHASES = 14
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -194,6 +209,10 @@ KERNELS = [
      "fedml_tpu/ops/wire_compression.py:108", None),
     ("fold_delta", "fedml_tpu_torch/csrc/fold_delta.cu",
      "fedml_tpu/ops/epilogue.py:199", None),
+    ("mc_conv.fwd", "fedml_tpu_torch/csrc/mc_conv.cu",
+     "fedml_tpu/ops/pallas_mc_conv.py:71", None),
+    ("mc_conv.wgrad", "fedml_tpu_torch/csrc/mc_conv.cu",
+     "fedml_tpu/ops/pallas_mc_conv.py:85", None),
 ]
 CHANNELS = ("none", "sgd", "momentum", "adam")
 # (atol, rtol): float32 sums in another order — the fused channels round
@@ -213,7 +232,8 @@ def check(cond, msg):
 
 
 def reset_launches():
-    for counts in (epilogue.LAUNCHES, attn.LAUNCHES, wc.LAUNCHES):
+    for counts in (epilogue.LAUNCHES, attn.LAUNCHES, wc.LAUNCHES,
+                   mcc.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -221,7 +241,7 @@ def reset_launches():
 def read_launches():
     """The launch counts, with ``fused_epilogue`` the sum of its channels
     and the wire kernels as ``wire_compression.<kernel>``."""
-    counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES,
+    counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES, **mcc.LAUNCHES,
                   **{f"wire_compression.{k}": n
                      for k, n in wc.LAUNCHES.items()})
     counts["fused_epilogue"] = sum(
@@ -263,7 +283,7 @@ def device_phase():
 def build_phase():
     t0 = time.perf_counter()
     names = ["weighted_reduce", "fused_epilogue", "flash_attention",
-             "wire_compression", "fold_delta"]
+             "wire_compression", "fold_delta", "mc_conv"]
     paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
     phase(2, "build", f"{len(paths)} kernel sources built from "
@@ -1819,6 +1839,482 @@ def trace_lm(api):
                 -(-sizes[cid] // api.bs))
 
 
+# ------------------------------------------------ the multi-client conv
+#: (name, H, Ci, Co, k, stride, count in one pass): ResNet-56's eight
+#: distinct convolutions, square inputs, channels-last per client
+RESNET56_CONVS = [
+    ("32x32 3->16 3x3 s1", 32, 3, 16, 3, 1, 1),
+    ("32x32 16->16 3x3 s1", 32, 16, 16, 3, 1, 18),
+    ("32x32 16->32 3x3 s2", 32, 16, 32, 3, 2, 1),
+    ("32x32 16->32 1x1 s2", 32, 16, 32, 1, 2, 1),
+    ("16x16 32->32 3x3 s1", 16, 32, 32, 3, 1, 17),
+    ("16x16 32->64 3x3 s2", 16, 32, 64, 3, 2, 1),
+    ("16x16 32->64 1x1 s2", 16, 32, 64, 1, 2, 1),
+    ("8x8 64->64 3x3 s1", 8, 64, 64, 3, 1, 17),
+]
+#: the shape that takes 18 of the 57 convs, and the kernels' JSON rows
+MC_MAIN = "32x32 16->16 3x3 s1"
+MC_K, MC_B = 10, 32
+#: tests/test_mc_conv.py:19-25, (K, B, H, W, Ci, Co, kh, kw, stride)
+MC_UNIT_CASES = [
+    (3, 4, 8, 8, 16, 16, 3, 3, (1, 1)),
+    (2, 4, 8, 8, 16, 32, 3, 3, (2, 2)),
+    (2, 4, 8, 8, 16, 32, 1, 1, (2, 2)),
+    (2, 2, 5, 7, 8, 8, 3, 3, (1, 1)),
+    (2, 2, 6, 6, 8, 8, 2, 2, (1, 1)),
+]
+
+
+def _mc_shape_case(h, ci, co, k, s):
+    return (MC_K, MC_B, h, h, ci, co, k, k, (s, s))
+
+
+def _mc_tensors(case, dtype, gen, dev):
+    """x, per-client weights at the lecun scale, and a cotangent g."""
+    k, b, h, w_, ci, co, kh, kw, stride = case
+    oh, ow = -(-h // stride[0]), -(-w_ // stride[1])
+    x = torch.randn(k, b, h, w_, ci, generator=gen)
+    w = torch.randn(k, kh, kw, ci, co, generator=gen) * (kh * kw * ci) ** -0.5
+    g = torch.randn(k, b, oh, ow, co, generator=gen)
+    return tuple(t.to(dtype).to(dev) for t in (x, w, g))
+
+
+def _sum_err(got, ref, abs_terms, n, label):
+    """Max |got − ref| for sums of ``n`` float32 products taken in another
+    order: checked against √n · 2^-23 · Σ|terms| (``abs_terms``, the same
+    sums over |operands|), plus one bfloat16 step of ``ref`` (2^-7·|ref|)
+    where the output is bfloat16."""
+    check(got.dtype == ref.dtype and got.shape == ref.shape,
+          f"{label}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+          f"version {ref.dtype} {tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite kernel output")
+    diff = (g - r).abs()
+    tol = math.sqrt(n) * 2.0 ** -23 * abs_terms.float()
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * r.abs()
+    check(bool((diff <= tol).all()),
+          f"{label}: kernel vs plain max |err| {float(diff.max()):.3g} past "
+          f"√{n}·2^-23·Σ|terms| (+ one bfloat16 step)")
+    return float(diff.max())
+
+
+def mc_kernel_phase(dev):
+    """Kernels B13 and B14 against their plain versions on the card: the
+    forward, dx through the forward kernel (stride-1 odd convs: the
+    forward on g with flipped, transposed weights) and dw, at
+    tests/test_mc_conv.py's five cases and ResNet-56's eight shapes at
+    10 clients of batch 32, in float32 and bfloat16."""
+    gen = torch.Generator().manual_seed(11)
+    cases = [(f"unit {c[:9]}", c) for c in MC_UNIT_CASES] + [
+        (name, _mc_shape_case(h, ci, co, k, s))
+        for name, h, ci, co, k, s, _ in RESNET56_CONVS]
+    errs = {"mc_conv.fwd": 0.0, "mc_conv.wgrad": 0.0}
+    worst = {}
+    n_dx = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, case in cases:
+            x, w, g = _mc_tensors(case, dtype, gen, dev)
+            _, kh, kw, ci, co = w.shape
+            stride = case[8]
+            tag = f"{label} {str(dtype)[6:]}"
+            y = mcc.mc_conv_fwd(x, w, stride)
+            dw = mcc.mc_conv_wgrad(x, g, kh, kw, stride)
+            torch.cuda.synchronize()
+            e_f = _sum_err(y, mcc.mc_conv_fwd_reference(x, w, stride),
+                           mcc.mc_conv_fwd_reference(x.abs(), w.abs(),
+                                                     stride),
+                           kh * kw * ci, f"mc_conv.fwd {tag}")
+            m = g.numel() // (g.shape[0] * co)
+            e_w = _sum_err(dw, mcc.mc_conv_wgrad_reference(x, g, kh, kw,
+                                                           stride),
+                           mcc.mc_conv_wgrad_reference(x.abs(), g.abs(), kh,
+                                                       kw, stride),
+                           m, f"mc_conv.wgrad {tag}")
+            e_d = 0.0
+            if stride == (1, 1) and kh % 2 == 1 and kw % 2 == 1:
+                w_flip = w.flip(1, 2).transpose(3, 4).contiguous()
+                dx = mcc.mc_conv_fwd(g, w_flip, (1, 1))
+                torch.cuda.synchronize()
+                e_d = _sum_err(dx, mcc.mc_conv_fwd_reference(g, w_flip),
+                               mcc.mc_conv_fwd_reference(g.abs(),
+                                                         w_flip.abs()),
+                               kh * kw * co, f"mc_conv dx {tag}")
+                n_dx += 1
+            errs["mc_conv.fwd"] = max(errs["mc_conv.fwd"], e_f, e_d)
+            errs["mc_conv.wgrad"] = max(errs["mc_conv.wgrad"], e_w)
+            worst[tag] = (e_f, e_d, e_w)
+    top = sorted(worst.items(), key=lambda kv: -max(kv[1]))[:4]
+    phase(3, "kernels", f"mc_conv forward, dx (forward kernel, {n_dx} "
+          f"stride-1 odd cases) and wgrad vs plain versions over "
+          f"{len(worst)} cases (the 5 unit cases and ResNet-56's 8 shapes at "
+          f"K {MC_K}, B {MC_B}; f32 and bf16): max |err| fwd/dx "
+          f"{errs['mc_conv.fwd']:.3g}, wgrad (f32 out) "
+          f"{errs['mc_conv.wgrad']:.3g}; tolerance √terms·2^-23·Σ|terms| "
+          f"(+ one bf16 step for bf16 outputs); largest (fwd, dx, dw): "
+          + "; ".join(f"{k} {v[0]:.2g}/{v[1]:.2g}/{v[2]:.2g}"
+                      for k, v in top))
+    return errs
+
+
+def _touched(n, k, s, pad_lo, out):
+    """How many of n input rows a k-tap, stride-s conv reads."""
+    return len({o * s + d - pad_lo for o in range(out) for d in range(k)
+                if 0 <= o * s + d - pad_lo < n})
+
+
+def mc_work(h, ci, co, k, s, kind, itemsize=2):
+    """(bytes, FLOPs) the card must move and do for one conv of K = 10
+    clients, batch 32: ``kind`` "fwd" (x read, w read, y written), "dx"
+    (g and w read, dx written) or "wgrad" (x and g read, dw written in
+    float32).  x counts only the pixels the conv reads (a 1x1 stride-2
+    conv reads a quarter of them)."""
+    oh, _, (pt, _), _ = mcc.same_padding(h, h, k, k, (s, s))
+    used = _touched(h, k, s, pt, oh) ** 2
+    x_b = MC_K * MC_B * used * ci * itemsize
+    y_b = MC_K * MC_B * oh * oh * co * itemsize
+    w_b = MC_K * k * k * ci * co * itemsize
+    flops = 2 * MC_K * MC_B * oh * oh * k * k * ci * co
+    if kind == "fwd":
+        return x_b + w_b + y_b, flops
+    if kind == "dx":
+        return y_b + w_b + MC_K * MC_B * h * h * ci * itemsize, flops
+    return x_b + y_b + MC_K * k * k * ci * co * 4, flops
+
+
+def _grouped_layout(x, w, g, stride):
+    """The grouped library call's operands, laid out and padded outside
+    any timed call: x [B, K·Ci, Hp, Wp] and g [B, K·Co, OH, OW] channels
+    last, w [K·Co, Ci, kh, kw]."""
+    k, b, h, wd, ci = x.shape
+    _, kh, kw, _, co = w.shape
+    _, _, (pt, pb), (pl, pr) = mcc.same_padding(h, wd, kh, kw, stride)
+    xg = F.pad(x.permute(1, 0, 4, 2, 3).reshape(b, k * ci, h, wd),
+               (pl, pr, pt, pb)).contiguous(memory_format=torch.channels_last)
+    gg = g.permute(1, 0, 4, 2, 3).reshape(b, k * co, *g.shape[2:4]
+                                          ).contiguous(
+        memory_format=torch.channels_last)
+    wg = w.permute(0, 4, 3, 1, 2).reshape(k * co, ci, kh, kw).contiguous(
+        memory_format=torch.channels_last)
+    return xg, wg, gg
+
+
+def _client_layout(x, w, g, stride):
+    """The per-client loop's operands, laid out and padded outside any
+    timed call: lists of K padded NCHW (channels-last) inputs, OIHW
+    weights and NCHW cotangents."""
+    xg, wg, gg = _grouped_layout(x, w, g, stride)
+    k = x.shape[0]
+    return ([t.contiguous(memory_format=torch.channels_last)
+             for t in xg.chunk(k, dim=1)], list(wg.chunk(k, dim=0)),
+            [t.contiguous(memory_format=torch.channels_last)
+             for t in gg.chunk(k, dim=1)])
+
+
+def mc_timing_phase(dev, card):
+    """Kernels B13 and B14 at ResNet-56's eight shapes, bfloat16, K 10,
+    B 32, cold L2, median of 50, a GPU sleep ahead of each call (the loop
+    of 10 library calls outlasts the cache flush on the host): the kernel
+    twice, its plain version twice, one grouped library call
+    (``F.conv2d(groups=K)`` or ``torch.nn.grad.conv2d_weight(groups=K)``)
+    and the per-client loop of 10 library calls (the JAX ``impl="xla"``
+    arm), both on operands laid out and padded outside the timed call."""
+    gen = torch.Generator().manual_seed(12)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows, table = {}, []
+    for name, h, ci, co, k, s, count in RESNET56_CONVS:
+        stride = (s, s)
+        x, w, g = _mc_tensors(_mc_shape_case(h, ci, co, k, s),
+                              torch.bfloat16, gen, dev)
+        xg, wg, gg = _grouped_layout(x, w, g, stride)
+        xs, ws, gs = _client_layout(x, w, g, stride)
+        fns = {
+            "fwd": dict(
+                kernel=lambda: mcc.mc_conv_fwd(x, w, stride),
+                plain=lambda: mcc.mc_conv_fwd_reference(x, w, stride),
+                grouped=lambda: F.conv2d(xg, wg, stride=stride,
+                                         groups=MC_K),
+                loop=lambda: [F.conv2d(a, b_, stride=stride)
+                              for a, b_ in zip(xs, ws)]),
+            "wgrad": dict(
+                kernel=lambda: mcc.mc_conv_wgrad(x, g, k, k, stride),
+                plain=lambda: mcc.mc_conv_wgrad_reference(x, g, k, k,
+                                                          stride),
+                grouped=lambda: torch.nn.grad.conv2d_weight(
+                    xg, wg.shape, gg, stride=stride, groups=MC_K),
+                loop=lambda: [torch.nn.grad.conv2d_weight(
+                    a, b_.shape, c, stride=stride)
+                    for a, b_, c in zip(xs, ws, gs)]),
+        }
+        for kind, fn in fns.items():
+            p1 = _time_ms(fn["plain"], flush, hide=True)
+            k1 = _time_ms(fn["kernel"], flush, hide=True)
+            lib = _time_ms(fn["grouped"], flush, hide=True)
+            loop = _time_ms(fn["loop"], flush, hide=True)
+            k2 = _time_ms(fn["kernel"], flush, hide=True)
+            p2 = _time_ms(fn["plain"], flush, hide=True)
+            nbytes, flops = mc_work(h, ci, co, k, s, kind)
+            bound_ms, bound_by = _bound(nbytes, flops, card, peak="bf16")
+            ms = statistics.median([k1, k2])
+            row = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                       library_ms=lib, loop_ms=loop, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            rows[(name, kind)] = row
+            table.append((name, kind, count, row))
+            phase(4, "timing", f"mc_conv.{kind} at {name}, K {MC_K}, B "
+                  f"{MC_B}, bf16, cold L2, median of 50: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, grouped "
+                  f"library call {lib:.4f} ms, per-client loop of {MC_K} "
+                  f"{loop:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+                  f"{card_peaks(card)[2] / 1e12:.0f} TFLOP/s dense bf16) -> "
+                  f"{bound_ms / ms:.1%} of the bound; kernel / loop "
+                  f"{ms / loop:.2f}x")
+    for kind in ("fwd", "wgrad"):
+        tot = {key: sum(r[key] * c for n, kd, c, r in table if kd == kind)
+               for key in ("ms", "library_ms", "loop_ms", "bound_ms")}
+        phase(4, "timing", f"mc_conv.{kind} summed over one pass's 57 convs "
+              f"(each shape's median times its count): kernel "
+              f"{tot['ms']:.3f} ms, grouped library {tot['library_ms']:.3f} "
+              f"ms, per-client loop {tot['loop_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms")
+    return {f"mc_conv.{kind}": {k_: v for k_, v in rows[(MC_MAIN, kind)]
+                                .items() if k_ != "loop_ms"}
+            for kind in ("fwd", "wgrad")}
+
+
+def resnet56_plan():
+    """ResNet-56's convolutions in network order as (H, Ci, Co, k, s), and
+    its blocks as (Conv_0, Conv_1, shortcut or None) indices into them."""
+    convs, blocks = [(32, 3, 16, 3, 1)], []
+    h, c = 32, 16
+    for stage, f in enumerate((16, 32, 64)):
+        for i in range(9):
+            s = 2 if stage > 0 and i == 0 else 1
+            c0 = len(convs)
+            convs += [(h, c, f, 3, s), (-(-h // s), f, f, 3, 1)]
+            short = None
+            if s != 1 or c != f:
+                short = len(convs)
+                convs.append((h, c, f, 1, s))
+            blocks.append((c0, c0 + 1, short))
+            h, c = -(-h // s), f
+    return convs, blocks
+
+
+def resnet56_pass(x, ws, conv, convs, blocks, probe):
+    """ResNet-56's convolutions with its ReLUs and residual adds (no
+    BatchNorm), forward and backward: the dw of every conv."""
+    y = torch.relu(conv(x, ws[0], convs[0][4]))
+    for c0, c1, short in blocks:
+        y0 = torch.relu(conv(y, ws[c0], convs[c0][4]))
+        y1 = conv(y0, ws[c1], 1)
+        r = y if short is None else conv(y, ws[short], convs[short][4])
+        y = torch.relu(y1 + r)
+    loss = (y.float() * probe).sum()
+    return y, torch.autograd.grad(loss, ws)
+
+
+def _time_pass(fn, reps=10):
+    """Median (device ms, host wall ms) of ``fn`` over ``reps`` calls after
+    two warm-up calls: CUDA events around each call, then a synchronize."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    dev_ms, wall_ms = [], []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(s.elapsed_time(e))
+    return statistics.median(dev_ms), statistics.median(wall_ms)
+
+
+def _busy_ms(fn):
+    """The device's busy time in one call of ``fn`` (after a warm call):
+    the summed durations of the kernels ``torch.profiler`` records, and
+    the share of it spent in this repo's mc_conv kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(kernels, "the profiler recorded no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ours = sum(e.time_range.elapsed_us() for e in kernels
+               if "mma_kernel" in e.name or "fwd_kernel" in e.name
+               or "wgrad_kernel" in e.name or "sum_splits" in e.name) / 1e3
+    return busy, ours
+
+
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def _f64_conv(x, w, s):
+    """The float64 oracle of ``conv_for_clients``: each client's SAME conv
+    through ``F.conv2d``, padded with ``F.pad`` first."""
+    outs = []
+    for xk, wk in zip(x, w):
+        k = wk.shape[0]
+        _, _, (pt, pb), (pl, pr) = mcc.same_padding(
+            xk.shape[1], xk.shape[2], k, k, (s, s))
+        xp = F.pad(xk.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+        outs.append(F.conv2d(xp, wk.permute(3, 2, 0, 1), stride=s)
+                    .permute(0, 2, 3, 1))
+    return torch.stack(outs)
+
+
+def _cat(ts):
+    return torch.cat([t.detach().float().reshape(-1) for t in ts])
+
+
+def mc_main_path_phase(n, card, dev):
+    """ResNet-56's 57 convolutions in network order, K 10 clients with
+    per-client weights, batch 32, bfloat16, forward and backward through
+    ``conv_for_clients`` (the kernels), the stem's input not requiring a
+    gradient; launch counts set to 0 before and read after; the pass
+    held to the same pass in float64 (cuDNN, one client at a time): in
+    float32 and in bfloat16, no farther from it than the per-client library
+    loop's (``impl="library"``) pass; then the pass's device time (the
+    events' span, idle gaps included, and the profiler's busy time)
+    against the library loop, the grouped library call (the same network
+    in the [B, K·C, H, W] layout) and the summed bound."""
+    convs, blocks = resnet56_plan()
+    check(len(convs) == 57 and sum(c[3] == 3 and c[4] == 1 for c in convs)
+          == 53, f"ResNet-56 plan: {len(convs)} convs")
+    gen = torch.Generator().manual_seed(14)
+    x32 = torch.randn(MC_K, MC_B, 32, 32, 3, generator=gen).to(dev)
+    w32 = [(torch.randn(MC_K, k, k, ci, co, generator=gen)
+            * (k * k * ci) ** -0.5).to(dev) for _, ci, co, k, _ in convs]
+    probe = torch.randn(MC_K, MC_B, 8, 8, 64, generator=gen).to(dev)
+
+    def kernel_conv(a, w, s):
+        return mcc.conv_for_clients(a, w, (s, s))
+
+    def loop_conv(a, w, s):
+        return mcc.conv_for_clients(a, w, (s, s), impl="library")
+
+    def run(conv, dtype):
+        ws = [w.detach().to(dtype).requires_grad_(True) for w in w32]
+        return resnet56_pass(x32.to(dtype), ws, conv, convs, blocks, probe)
+
+    # the oracle: the same pass in float64 through cuDNN, one client at a
+    # time.  Rounding compounds over the 56 layers behind a gradient (and
+    # flips ReLU masks), so a float32 pass sits about 1e-3 from it and a
+    # bfloat16 pass about 1e-1: the kernels' pass, in each dtype, must sit
+    # no farther from it than the per-client library loop's (relative L2 of
+    # y, and of all 57 dw together)
+    y_64, dw_64 = run(_f64_conv, torch.float64)
+
+    def dist(out):
+        return _rel(out[0], y_64), _rel(_cat(out[1]), _cat(dw_64))
+
+    f32_err = dist(run(kernel_conv, torch.float32))
+    lib_f32_err = dist(run(loop_conv, torch.float32))
+    # the main path, bfloat16, counted
+    torch.cuda.synchronize()
+    reset_launches()
+    mcc.LIBRARY_CALLS["dx"] = 0
+    y_k, dw_k = run(kernel_conv, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lib_dx = mcc.LIBRARY_CALLS["dx"]
+    check(launches["mc_conv.fwd"] == 57 + 52
+          and launches["mc_conv.wgrad"] == 57 and lib_dx == 4,
+          f"phase {n}: launches fwd {launches['mc_conv.fwd']} (want 109), "
+          f"wgrad {launches['mc_conv.wgrad']} (want 57), library dx "
+          f"{lib_dx} (want 4)")
+    check(tuple(y_k.shape) == (MC_K, MC_B, 8, 8, 64)
+          and bool(torch.isfinite(y_k.float()).all())
+          and all(bool(torch.isfinite(d.float()).all()) for d in dw_k),
+          f"phase {n}: non-finite or misshapen pass output")
+    bf16_err = dist((y_k, dw_k))
+    lib_err = dist(run(loop_conv, torch.bfloat16))
+    for label, got, lib in (("float32", f32_err, lib_f32_err),
+                            ("bfloat16", bf16_err, lib_err)):
+        check(all(a <= 1.25 * b + 1e-4 for a, b in zip(got, lib)),
+              f"phase {n}: {label} pass vs the float64 one, relative L2 of "
+              f"y and of all dw: kernels {got}, library loop {lib}")
+
+    # the grouped library call: the same network in [B, K·C, H, W]
+    def grouped_pass():
+        xg = x32.to(torch.bfloat16).permute(1, 0, 4, 2, 3).reshape(
+            MC_B, MC_K * 3, 32, 32).contiguous(
+            memory_format=torch.channels_last)
+        wgs = [w.to(torch.bfloat16).permute(0, 4, 3, 1, 2).reshape(
+            MC_K * w.shape[4], w.shape[3], w.shape[1], w.shape[2])
+            .requires_grad_(True) for w in w32]
+
+        def conv(a, w, s):
+            k = w.shape[2]
+            _, _, (pt, pb), (pl, pr) = mcc.same_padding(
+                a.shape[2], a.shape[3], k, k, (s, s))
+            return F.conv2d(F.pad(a, (pl, pr, pt, pb)), w, stride=s,
+                            groups=MC_K)
+
+        pg = probe.permute(1, 0, 4, 2, 3).reshape(MC_B, MC_K * 64, 8, 8)
+        return resnet56_pass(xg, wgs, conv, convs, blocks, pg)
+
+    def kernel_pass():
+        return run(kernel_conv, torch.bfloat16)
+
+    def loop_pass():
+        return run(loop_conv, torch.bfloat16)
+
+    k1 = _time_pass(kernel_pass)
+    lp = _time_pass(loop_pass)
+    gp = _time_pass(grouped_pass)
+    k2 = _time_pass(kernel_pass)
+    kb, kb_ours = _busy_ms(kernel_pass)
+    lb, _ = _busy_ms(loop_pass)
+    gb, _ = _busy_ms(grouped_pass)
+    bound = 0.0
+    for i, (h, ci, co, k, s) in enumerate(convs):
+        kinds = ["fwd", "wgrad"] + (["dx"] if i else [])
+        for kind in kinds:
+            bound += _bound(*mc_work(h, ci, co, k, s, kind), card,
+                            peak="bf16")[0]
+    ms = statistics.median([k1[0], k2[0]])
+    phase(n, "main path", f"multi-client conv: ResNet-56's 57 convs in "
+          f"network order (with its ReLUs and residual adds, no BatchNorm), "
+          f"K {MC_K} clients with per-client weights, B {MC_B}, bf16, "
+          f"forward and backward through conv_for_clients: launches "
+          f"mc_conv.fwd {launches['mc_conv.fwd']} (57 forwards + 52 dx), "
+          f"mc_conv.wgrad {launches['mc_conv.wgrad']}, library dx {lib_dx}; "
+          f"relative L2 to the float64 pass (cuDNN, one client at a time), "
+          f"y / all dw: f32 kernels {f32_err[0]:.2e} / {f32_err[1]:.2e}, "
+          f"f32 library loop {lib_f32_err[0]:.2e} / {lib_f32_err[1]:.2e}, "
+          f"bf16 kernels {bf16_err[0]:.2e} / {bf16_err[1]:.2e}, bf16 "
+          f"library loop {lib_err[0]:.2e} / {lib_err[1]:.2e}")
+    phase(n, "main path", f"one pass, device clock from its first launch "
+          f"to its last (median of 10; idle gaps included) / host wall: "
+          f"kernels {k1[0]:.3f} / {k1[1]:.3f} and {k2[0]:.3f} / "
+          f"{k2[1]:.3f} ms, per-client library loop {lp[0]:.3f} / "
+          f"{lp[1]:.3f} ms, grouped library call {gp[0]:.3f} / {gp[1]:.3f} "
+          f"ms -> kernels / loop {ms / lp[0]:.2f}x, kernels / grouped "
+          f"{ms / gp[0]:.2f}x")
+    phase(n, "main path", f"one pass, device busy (summed kernel times, "
+          f"torch.profiler): kernels {kb:.3f} ms (mc_conv kernels "
+          f"{kb_ours:.3f}), per-client library loop {lb:.3f} ms, grouped "
+          f"library call {gb:.3f} ms; summed bound of the pass's 57 "
+          f"forwards, 56 dx and 57 dw {bound:.4f} ms -> kernels "
+          f"{bound / kb:.2%}, loop {bound / lb:.2%}, grouped "
+          f"{bound / gb:.2%} of it; kernels / loop {kb / lb:.2f}x, kernels "
+          f"/ grouped {kb / gb:.2f}x")
+    return launches
+
+
 def main():
     name, _ = device_phase()
     # the port's device choice: the card, with TF32 off
@@ -1829,11 +2325,13 @@ def main():
     errs["flash_attention"] = flash_kernel_phase(dev)
     errs.update(wire_kernel_phase(dev))
     errs["fold_delta"] = fold_kernel_phase(dev)
+    errs.update(mc_kernel_phase(dev))
     timing = timing_phase(dev, p_main, d_main, name)
     timing["flash_attention"] = flash_timing_phase(dev, name)
     wire_timing, codec_round_s = wire_timing_phase(dev, name)
     timing.update(wire_timing)
     timing["fold_delta"] = fold_timing_phase(dev, name)
+    timing.update(mc_timing_phase(dev, name))
     parity = parity_phase(dev)
     lm_parity_phase(dev)
     cs_parity_phase(dev)
@@ -1851,12 +2349,16 @@ def main():
     llm_launches, last = fed_llm_phase(12)
     trace_fed_llm(last)
     last = None
+    mc_launches = mc_main_path_phase(14, name, dev)
     # launches, each from its own path: the weighted reduce from both
     # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
     # 3, the flash forward from the BERT-tiny path's eval passes, the wire
-    # kernels from the int8 cross-silo path, the fold from the fed-LLM path
+    # kernels from the int8 cross-silo path, the fold from the fed-LLM path,
+    # the conv kernels from the multi-client conv pass
     launches = {
+        "mc_conv.fwd": mc_launches["mc_conv.fwd"],
+        "mc_conv.wgrad": mc_launches["mc_conv.wgrad"],
         "fold_delta": llm_launches["fold_delta"],
         "wire_compression.quantize": cs_launches["wire_compression.quantize"],
         "wire_compression.dequantize":

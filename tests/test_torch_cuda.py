@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 weighted reduce, the fused epilogue, the flash-attention forward, the
 int8 wire codec's quantize and dequantize and top-k selection on ties, and
-the fed-LLM adapter fold (bit for bit), and one fed-LLM round on the card
-against the same round on the CPU.  Every test here needs an NVIDIA card
+the fed-LLM adapter fold (bit for bit), one fed-LLM round on the card
+against the same round on the CPU, and the multi-client conv's forward and
+weight-gradient kernels (forward, dx and dw; within the float32 error of
+sums in another order, √terms · 2^-23 · Σ|terms|, and one bfloat16 step).  Every test here needs an NVIDIA card
 and ``nvcc``: the kernel has no CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
@@ -764,3 +766,118 @@ def test_fed_llm_round_on_the_card_matches_the_cpu(card):
     steps = sum(FED_LLM_TOKENS.for_run("cuda_fed_llm_cuda").values()) \
         // (32 * 4)
     assert launched == (1, 1, 2 * (steps + n_eval)), launched
+
+
+# ------------------------------------------------ the multi-client conv
+#: (K, B, H, W, Ci, Co, kh, kw, stride): tests/test_mc_conv.py's cases, a
+#: stem-like Ci of 3 and a Co of 12 (the kernels' scalar paths), and two of
+#: ResNet-56's shapes at 10 clients of batch 32
+MC_CASES = {
+    "s1": (3, 4, 8, 8, 16, 16, 3, 3, (1, 1)),
+    "s2": (2, 4, 8, 8, 16, 32, 3, 3, (2, 2)),
+    "shortcut_1x1_s2": (2, 4, 8, 8, 16, 32, 1, 1, (2, 2)),
+    "odd_spatial": (2, 2, 5, 7, 8, 8, 3, 3, (1, 1)),
+    "even_kernel": (2, 2, 6, 6, 8, 8, 2, 2, (1, 1)),
+    "stem_ci3": (2, 4, 8, 8, 3, 16, 3, 3, (1, 1)),
+    "co12": (2, 2, 6, 6, 8, 12, 3, 3, (1, 1)),
+    "resnet56_16_16_s1": (10, 32, 32, 32, 16, 16, 3, 3, (1, 1)),
+    "resnet56_16_32_s2": (10, 32, 32, 32, 16, 32, 3, 3, (2, 2)),
+}
+
+
+def _mc_inputs(name, dtype, card):
+    k, b, h, w_, ci, co, kh, kw, stride = MC_CASES[name]
+    gen = torch.Generator().manual_seed(sorted(MC_CASES).index(name))
+    x = torch.randn(k, b, h, w_, ci, generator=gen)
+    w = torch.randn(k, kh, kw, ci, co, generator=gen) * (ci * kh * kw) ** -0.5
+    oh, ow = -(-h // stride[0]), -(-w_ // stride[1])
+    g = torch.randn(k, b, oh, ow, co, generator=gen)
+    return tuple(t.to(dtype).to(card) for t in (x, w, g)) + (stride,)
+
+
+def _assert_sums_close(got, ref, abs_terms, n, label):
+    """Sums of ``n`` float32 products in another order: within
+    √n · 2^-23 · Σ|terms| (``abs_terms``), plus one bfloat16 step of the
+    reference where the output is bfloat16."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape, label
+    g, r = got.float(), ref.float()
+    assert bool(torch.isfinite(g).all()), label
+    tol = math.sqrt(n) * 2.0 ** -23 * abs_terms.float() + 1e-30
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * r.abs()
+    excess = float(((g - r).abs() - tol).max())
+    assert excess <= 0, f"{label}: {excess:.3g} past the tolerance"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(MC_CASES))
+def test_mc_conv_kernels_match_plain_versions(name, dtype, card):
+    """Forward, dx and dw on the card against the plain versions on the
+    same inputs.  dx of a stride-1 odd conv is the forward kernel on
+    flipped weights; the others take the library input gradient, held here
+    against autograd through the per-client library conv in float32, with
+    cuDNN's TF32 off as the port's ``get_device`` sets it."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _check_mc_conv_case(name, dtype, card)
+
+
+def _check_mc_conv_case(name, dtype, card):
+    from fedml_tpu_torch.ops import pallas_mc_conv as mc
+
+    x, w, g, stride = _mc_inputs(name, dtype, card)
+    _, kh, kw, ci, co = w.shape
+    before = dict(mc.LAUNCHES)
+    y = mc.mc_conv_fwd(x, w, stride)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["mc_conv.fwd"] == before["mc_conv.fwd"] + 1
+    _assert_sums_close(y, mc.mc_conv_fwd_reference(x, w, stride),
+                       mc.mc_conv_fwd_reference(x.abs(), w.abs(), stride)
+                       .float(), kh * kw * ci, f"{name} forward")
+
+    dw = mc.mc_conv_wgrad(x, g, kh, kw, stride)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["mc_conv.wgrad"] == before["mc_conv.wgrad"] + 1
+    n = g.numel() // (g.shape[0] * co)
+    _assert_sums_close(dw, mc.mc_conv_wgrad_reference(x, g, kh, kw, stride),
+                       mc.mc_conv_wgrad_reference(x.abs(), g.abs(), kh, kw,
+                                                  stride), n, f"{name} dw")
+    assert torch.equal(dw, mc.mc_conv_wgrad(x, g, kh, kw, stride)), \
+        f"{name}: dw differs from run to run"
+
+    xr = x.detach().clone().requires_grad_(True)
+    wr = w.detach().clone().requires_grad_(True)
+    dx, dw_auto = torch.autograd.grad(mc.mc_conv(xr, wr, stride), (xr, wr), g)
+    assert torch.equal(dw_auto, dw.to(dtype))
+    if stride == (1, 1) and kh % 2 == 1:
+        w_flip = w.flip(1, 2).transpose(3, 4)
+        _assert_sums_close(dx, mc.mc_conv_fwd_reference(g, w_flip),
+                           mc.mc_conv_fwd_reference(g.abs(), w_flip.abs())
+                           .float(), kh * kw * co, f"{name} dx")
+    else:
+        xf = x.float().requires_grad_(True)
+        (dx_f32,) = torch.autograd.grad(
+            mc.conv_for_clients(xf, w.float(), stride, impl="library"), xf,
+            g.float())
+        abs_terms = mc._library_dx(x.shape, w.abs().float(),
+                                   g.abs().float(), stride)
+        _assert_sums_close(dx, dx_f32.to(dtype), abs_terms, kh * kw * co,
+                           f"{name} library dx")
+
+
+@pytest.mark.gpu
+def test_mc_conv_refuses_what_it_does_not_take(card):
+    from fedml_tpu_torch.ops import pallas_mc_conv as mc
+
+    before = dict(mc.LAUNCHES)
+    x = torch.zeros(2, 1, 4, 4, 8, device=card)
+    w = torch.zeros(2, 3, 3, 8, 8, device=card)
+    with pytest.raises(TypeError, match="one dtype"):
+        mc.mc_conv_fwd(x.half(), w.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        mc.mc_conv_wgrad(x.double(), x.double(), 3, 3)
+    with pytest.raises(ValueError, match=r"\[K, B, H, W, Ci\]"):
+        mc.mc_conv_fwd(x[0], w)
+    with pytest.raises(ValueError, match="on the CPU or on one card"):
+        mc.mc_conv_fwd(x, w.cpu())
+    assert mc.LAUNCHES == before
