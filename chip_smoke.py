@@ -29,7 +29,11 @@ raises and ends the run with a non-zero exit:
    misaligned buffer), and the multi-client conv's forward and
    weight-gradient kernels (the forward, dx through the forward kernel and
    dw, at ``tests/test_mc_conv.py``'s five cases and ResNet-56's eight
-   conv shapes at 10 clients of batch 32, float32 and bfloat16);
+   conv shapes at 10 clients of batch 32, float32 and bfloat16), and
+   ``ops/pallas_ops``' weighted average and int8 product (within the
+   float32 bound of a sum of C or K terms; the tests' cases, ragged and
+   misaligned operands, and the main paths' shapes) and quantize-mask
+   (bit for bit, with out-of-range, infinite and NaN values);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
    could take (the multi-client conv also beside the per-client loop of
@@ -88,10 +92,24 @@ raises and ends the run with a non-zero exit:
     input gradients), the pass in float32 and bfloat16 held to the same
     pass in float64 (no farther from it than the per-client library
     loop's), and its device time against that loop, the grouped library
-    call and its summed bound.
+    call and its summed bound;
+15. main path, ``ops/pallas_ops`` — each of its three kernels driven at a
+    width the repo runs, through its public entries: the weighted average
+    (``agg_stacked_pallas``) over a stacked 10-client ResNet-56 variable
+    tree (860,026 values, integer sample counts as weights), held to its
+    plain version and to the port's ``agg_stacked`` (kernel 1); SecAgg's
+    bulk round over ResNet-56's 860,026 parameters for 8 silos, each
+    masking its update with ``quantize_mask`` and its own
+    ``prg_mask_like`` mask, the server summing the words modulo 2^32,
+    unmasking and dequantizing (bit for bit against the two-step
+    ``mask_model(quantize(x))``, the sum within 8·2^-17 of the float
+    sum); and one decode step's 72 ``int8_matmul`` products over a
+    GPT-2-small-width parameter dict quantized by ``quantize_lm_params``
+    (``benchmarks/serve_bench.py``'s widths: dim 768, 12 layers, decode
+    batch 64), at M = 64 and M = 1.
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9, 11, 12 and 14) is driven with the kernels' launch counts set to 0 just
+9, 11, 12, 14 and 15) is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -113,7 +131,8 @@ import torch.nn.functional as F
 
 import fedml_tpu_torch
 from fedml_tpu_torch import FedMLRunner
-from fedml_tpu_torch.ml.aggregator.agg_operator import fold_buffer
+from fedml_tpu_torch.core.mpc import secagg
+from fedml_tpu_torch.ml.aggregator.agg_operator import agg_stacked, fold_buffer
 from fedml_tpu_torch.ml.engine.model_bundle import (
     TASK_LM,
     FlatVariables,
@@ -124,7 +143,14 @@ from fedml_tpu_torch.models.nlp import TinyTransformerLM
 from fedml_tpu_torch.ops import cuda_build, epilogue
 from fedml_tpu_torch.ops import pallas_attention as attn
 from fedml_tpu_torch.ops import pallas_mc_conv as mcc
+from fedml_tpu_torch.ops import pallas_ops as po
 from fedml_tpu_torch.ops import wire_compression as wc
+from fedml_tpu_torch.serving.quantization import (
+    _MATMUL_KEYS,
+    dequantize_matrix,
+    quantize_lm_params,
+    quantize_matrix_int8,
+)
 from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
 from fedml_tpu_torch.train.fed_llm import FedLLMAggregator, FedLLMTrainer
 from fedml_tpu_torch.train.fed_llm.trainer import (
@@ -138,7 +164,7 @@ from fedml_tpu_torch.utils.weights import tree_from_module
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 14
+PHASES = 15
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -213,6 +239,12 @@ KERNELS = [
      "fedml_tpu/ops/pallas_mc_conv.py:71", None),
     ("mc_conv.wgrad", "fedml_tpu_torch/csrc/mc_conv.cu",
      "fedml_tpu/ops/pallas_mc_conv.py:85", None),
+    ("pallas_ops.weighted_average", "fedml_tpu_torch/csrc/pallas_ops.cu",
+     "fedml_tpu/ops/pallas_ops.py:48", None),
+    ("pallas_ops.quantize_mask", "fedml_tpu_torch/csrc/pallas_ops.cu",
+     "fedml_tpu/ops/pallas_ops.py:104", None),
+    ("pallas_ops.int8_matmul", "fedml_tpu_torch/csrc/pallas_ops.cu",
+     "fedml_tpu/ops/pallas_ops.py:141", None),
 ]
 CHANNELS = ("none", "sgd", "momentum", "adam")
 # (atol, rtol): float32 sums in another order — the fused channels round
@@ -222,8 +254,25 @@ F32_TOL = (2e-6, 2e-6)
 BF16_TOL = (1e-6, 2.0 ** -8)    # one bfloat16 step on a last-bit difference
 
 
+#: host clock of each phase's last line so far, for the wall summary
+_PHASE_LAST = {}
+_T0 = time.perf_counter()
+
+
 def phase(n, name, msg):
     print(f"[{n}/{PHASES} {name}] {msg}", flush=True)
+    _PHASE_LAST[n] = time.perf_counter()
+
+
+def phase_walls():
+    """The script's wall, and each phase's seconds: from the previous
+    phase's last line to its own (every phase prints as its work ends)."""
+    parts, prev = [], _T0
+    for n in sorted(_PHASE_LAST):
+        parts.append(f"{n}: {_PHASE_LAST[n] - prev:.1f}")
+        prev = _PHASE_LAST[n]
+    return (f"chip_smoke wall {time.perf_counter() - _T0:.1f} s; seconds "
+            f"by phase " + ", ".join(parts))
 
 
 def check(cond, msg):
@@ -233,7 +282,7 @@ def check(cond, msg):
 
 def reset_launches():
     for counts in (epilogue.LAUNCHES, attn.LAUNCHES, wc.LAUNCHES,
-                   mcc.LAUNCHES):
+                   mcc.LAUNCHES, po.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -242,6 +291,7 @@ def read_launches():
     """The launch counts, with ``fused_epilogue`` the sum of its channels
     and the wire kernels as ``wire_compression.<kernel>``."""
     counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES, **mcc.LAUNCHES,
+                  **po.LAUNCHES,
                   **{f"wire_compression.{k}": n
                      for k, n in wc.LAUNCHES.items()})
     counts["fused_epilogue"] = sum(
@@ -283,7 +333,7 @@ def device_phase():
 def build_phase():
     t0 = time.perf_counter()
     names = ["weighted_reduce", "fused_epilogue", "flash_attention",
-             "wire_compression", "fold_delta", "mc_conv"]
+             "wire_compression", "fold_delta", "mc_conv", "pallas_ops"]
     paths = cuda_build.build_all(names)
     secs = time.perf_counter() - t0
     phase(2, "build", f"{len(paths)} kernel sources built from "
@@ -565,12 +615,13 @@ def flash_kernel_phase(dev):
 HIDE_CYCLES = 2_000_000
 
 
-def _time_ms(fn, flush, n=50, warmup=5, hide=False):
+def _time_ms(fn, flush, n=50, warmup=5, hide=False,
+             hide_cycles=HIDE_CYCLES):
     """Median device time of ``fn`` over ``n`` calls, each on a cold L2:
     a 256 MB write precedes every call (the round's reduce reads client
     rows written long before), and keeps the card busy while the host
     enqueues the call, so host overhead does not enter the interval; with
-    ``hide`` a GPU sleep of ``HIDE_CYCLES`` follows the write, for calls
+    ``hide`` a GPU sleep of ``hide_cycles`` follows the write, for calls
     whose host work outlasts it."""
     for _ in range(warmup):
         fn()
@@ -579,7 +630,7 @@ def _time_ms(fn, flush, n=50, warmup=5, hide=False):
     for s, e in zip(starts, ends):
         flush.zero_()
         if hide:
-            torch.cuda._sleep(HIDE_CYCLES)
+            torch.cuda._sleep(hide_cycles)
         s.record()
         fn()
         e.record()
@@ -2315,6 +2366,457 @@ def mc_main_path_phase(n, card, dev):
     return launches
 
 
+# --------------------------------------------- ops/pallas_ops: kernels 7–9
+#: the serving path's GPT-2-small widths (benchmarks/serve_bench.py:107-108)
+GPT2 = dict(vocab=50257, dim=768, layers=12, max_len=640)
+DECODE_BATCH = 64
+#: int8 weights of the blocks: wq, wk, wv, wo, w1 and w2 are 12·dim²
+GPT2_INT8_WEIGHTS = GPT2["layers"] * 12 * GPT2["dim"] ** 2
+
+
+def _order_err(got, ref, abs_ref, n, label):
+    """Max |got − ref| of float32 sums of ``n`` terms taken in two orders,
+    checked against n · 2^-24 · ``abs_ref`` (the same sums over |terms|)."""
+    check(got.dtype == ref.dtype and got.shape == ref.shape,
+          f"{label}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+          f"version {ref.dtype} {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    diff = (got - ref).abs()
+    bound = n * 2.0 ** -24 * abs_ref + 1e-30
+    check(bool((diff <= bound).all()),
+          f"{label}: kernel vs plain max |err| {float(diff.max()):.3g} past "
+          f"{n}·2^-24·Σ|terms|")
+    return float(diff.max())
+
+
+def _offset(t, k):
+    """``t``'s values starting ``k`` elements into a fresh storage (not
+    16-byte aligned for k = 1)."""
+    if not k:
+        return t
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _wavg_check(x, w, label):
+    got = po.weighted_average_flat(x, w)
+    torch.cuda.synchronize()
+    ref = po.weighted_average_flat_reference(x, w)
+    wn = po.normalized_weights(w)
+    return _order_err(got, ref, wn.abs() @ x.float().abs(), x.shape[0],
+                      label)
+
+
+def _qmask_inputs(d, gen):
+    """x with ±40000 (past int32 once scaled), ±inf, NaN and exact halves
+    2^-17·(2k+1); masks near 2^32 − 1 (int32 −1, −2, ...) that wrap."""
+    x = torch.randn(d, generator=gen)
+    edge = torch.cat([torch.tensor([40000.0, -40000.0, float("inf"),
+                                    -float("inf"), float("nan"), 32768.0]),
+                      2.0 ** -17 * (2 * torch.arange(-20, 20) + 1).float()])
+    x[:min(d, edge.numel())] = edge[:d]
+    m = torch.randint(-2 ** 31, 2 ** 31, (d,), generator=gen,
+                      dtype=torch.int32)
+    m[:min(d, 64)] = -1 - torch.arange(min(d, 64), dtype=torch.int32)
+    return x, m
+
+
+def _mm_check(x, q, s, label):
+    got = po.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    ref = po.int8_matmul_reference(x, q, s)
+    return _order_err(got, ref, po.int8_matmul_reference(x.abs(), q.abs(), s),
+                      q.shape[0], label)
+
+
+def gpt2_params(dev, seed=15):
+    """A seeded parameter dict in the JAX package's ``init_lm_params``
+    layout (``fedml_tpu/parallel/seq_parallel.py:38-62``) at GPT-2-small
+    widths, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dim, v = GPT2["dim"], GPT2["vocab"]
+
+    def normal(*shape, scale):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def ln():
+        return {"scale": torch.ones(dim, device=dev),
+                "bias": torch.zeros(dim, device=dev)}
+
+    s = 1.0 / math.sqrt(dim)
+    return {
+        "embed": normal(v, dim, scale=0.02),
+        "pos": normal(GPT2["max_len"], dim, scale=0.02),
+        "ln_f": ln(),
+        "blocks": [{"ln1": ln(), "wq": normal(dim, dim, scale=s),
+                    "wk": normal(dim, dim, scale=s),
+                    "wv": normal(dim, dim, scale=s),
+                    "wo": normal(dim, dim, scale=s), "ln2": ln(),
+                    "w1": normal(dim, 4 * dim, scale=s),
+                    "w2": normal(4 * dim, dim, scale=s / 2.0)}
+                   for _ in range(GPT2["layers"])],
+    }
+
+
+def decode_matrices(qparams):
+    """One decode step's 72 int8 products, (q, s) in block order."""
+    return [(blk[k]["q"], blk[k]["s"]) for blk in qparams["blocks"]
+            for k in _MATMUL_KEYS]
+
+
+def decode_inputs(m, dev, seed):
+    """Seeded activations ``{K: [m, K]}`` for the products' two widths."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dim = GPT2["dim"]
+    return {k: torch.randn(m, k, generator=gen, device=dev)
+            for k in (dim, 4 * dim)}
+
+
+def decode_work(mats, m):
+    """(bytes, FLOPs) of one decode step's products at batch m: each int8
+    weight, scale, activation and output moved once."""
+    nbytes = sum(q.numel() + 4 * (q.shape[1] + m * q.shape[0]
+                                  + m * q.shape[1]) for q, _ in mats)
+    return nbytes, sum(2 * m * q.numel() for q, _ in mats)
+
+
+def po_kernel_phase(dev):
+    """Kernels B7, B8 and B9 against their plain versions on the card: the
+    CPU tests' cases, weights of every kernel type, ragged and misaligned
+    operands, and the shapes of phase 15."""
+    gen = torch.Generator().manual_seed(15)
+    errs = {}
+    w_err = {}
+    for label, c, d, dtype, wkind, off in (
+            ("jax_test", 10, 3000, torch.float32, "float", 0),
+            ("zero_weights", 10, 3000, torch.float32, "some_zero", 0),
+            ("all_zero", 4, 777, torch.float32, "zero", 0),
+            ("one_client", 1, 777, torch.float32, "float", 0),
+            ("int64_ragged", 10, 3001, torch.float32, "int64", 0),
+            ("bf16", 6, 1024, torch.bfloat16, "int32", 0),
+            ("misaligned", 10, 3000, torch.float32, "float", 1),
+            ("resnet56", 10, 860026, torch.float32, "int32", 0)):
+        x = _offset(torch.randn(c, d, generator=gen).to(dtype).to(dev), off)
+        if wkind in ("int32", "int64"):
+            w = torch.randint(1, 600, (c,), generator=gen,
+                              dtype=getattr(torch, wkind))
+        else:
+            w = torch.rand(c, generator=gen)
+            if wkind == "some_zero":
+                w[::3] = 0.0
+            elif wkind == "zero":
+                w.zero_()
+        w_err[label] = _wavg_check(x, w.to(dev), f"weighted_average {label}")
+    errs["pallas_ops.weighted_average"] = max(w_err.values())
+
+    n_words = 0
+    for d, dtype, off in ((777, torch.float32, 0), (1, torch.float32, 0),
+                          (1025, torch.bfloat16, 0), (777, torch.float32, 1),
+                          (860026, torch.float32, 0)):
+        x, m = _qmask_inputs(d, gen)
+        x = x.to(dtype)
+        xc, mc = _offset(x.to(dev), off), _offset(m.to(dev), off)
+        got = po.quantize_mask(xc, mc)
+        torch.cuda.synchronize()
+        check(torch.equal(got, po.quantize_mask_reference(xc, mc))
+              and torch.equal(got.cpu(), po.quantize_mask(x, m)),
+              f"quantize_mask D {d} {dtype} offset {off}: the kernel's words "
+              f"differ from the plain version's on the card or the CPU")
+        n_words += d
+    errs["pallas_ops.quantize_mask"] = 0.0
+
+    m_err = {}
+    dim = GPT2["dim"]
+    for label, m, k, n, dtype, q_off, pad in (
+            ("jax_test", 4, 48, 700, torch.float32, 0, 0),
+            ("m1_bf16", 1, 48, 700, torch.bfloat16, 0, 0),
+            ("wq_m1", 1, dim, dim, torch.float32, 0, 0),
+            ("wq_m64", 64, dim, dim, torch.float32, 0, 0),
+            ("w1_m64", 64, dim, 4 * dim, torch.float32, 0, 0),
+            ("w2_m64_bf16", 64, 4 * dim, dim, torch.bfloat16, 0, 0),
+            ("ragged", 17, 100, 203, torch.float32, 0, 0),
+            ("misaligned_q", 8, 64, 256, torch.float32, 1, 0),
+            ("strided_x", 5, 96, 128, torch.float32, 0, 7)):
+        qs = quantize_matrix_int8(torch.randn(k, n, generator=gen).to(dev)
+                                  * k ** -0.5)
+        x = torch.randn(m, k + pad, generator=gen).to(dtype).to(dev)[:, :k]
+        m_err[label] = _mm_check(x, _offset(qs["q"], q_off), qs["s"],
+                                 f"int8_matmul {label}")
+    errs["pallas_ops.int8_matmul"] = max(m_err.values())
+    phase(3, "kernels", "pallas_ops weighted_average vs plain version, max "
+          "|err| (tolerance C·2^-24·Σ_c|wn_c x_c|): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in w_err.items())
+          + f"; quantize_mask bit for bit over 5 cases ({n_words} words: "
+          f"±40000, ±inf, NaN, halves, wrapping masks, bf16, misaligned, "
+          f"D 860,026) on the card and against the CPU; int8_matmul vs "
+          f"plain version (tolerance K·2^-24·(|x|@|q|)·s): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in m_err.items()))
+    return errs
+
+
+def _hidden(fn):
+    """``_time_ms``'s sleep for ``fn``: three times the host time of one
+    call to enqueue (at the H100's 1.98 GHz boost), at least
+    ``HIDE_CYCLES``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dict(hide=True, hide_cycles=max(HIDE_CYCLES,
+                                           int(3 * host_s * 1.98e9)))
+
+
+def po_timing_phase(dev, card):
+    """Kernels B7 and B8 at ResNet-56's 860,026 values (B7 over 10 clients,
+    integer weights), B9 over one GPT-2-small decode step's 72 products at
+    M = 64 and M = 1: cold L2, median of 50, kernel and plain version in
+    turns, and a single PyTorch call where one computes the same function
+    (B7: ``torch.matmul(wn[None], x)``; B9: ``_weight_int8pack_mm`` where
+    the card's PyTorch takes CUDA tensors)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = {}
+    c, d = 10, 860026
+    x = torch.randn(c, d, generator=gen, device=dev)
+    w = torch.randint(100, 900, (c,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    wn = po.normalized_weights(w)
+    p1 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush)
+    k1 = _time_ms(lambda: po.weighted_average_flat(x, w), flush)
+    lib = _time_ms(lambda: torch.matmul(wn[None], x), flush)
+    k2 = _time_ms(lambda: po.weighted_average_flat(x, w), flush)
+    p2 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush)
+    nbytes = (c + 1) * d * 4 + c * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * c * d, card)
+    ms = statistics.median([k1, k2])
+    rows["pallas_ops.weighted_average"] = dict(
+        ms=ms, plain_ms=statistics.median([p1, p2]), library_ms=lib,
+        bound_ms=bound_ms, bound_by=bound_by)
+    phase(4, "timing", f"pallas_ops.weighted_average at [10, {d}] f32, int32 "
+          f"weights, cold L2, median of 50: kernel {k1:.4f} / {k2:.4f} ms, "
+          f"plain {p1:.4f} / {p2:.4f} ms, library matmul(wn[None], x) "
+          f"{lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB) -> {bound_ms / ms:.1%} of the bound")
+
+    xq = torch.randn(d, generator=gen, device=dev) * 0.01
+    mq = torch.randint(-2 ** 31, 2 ** 31, (d,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    p1 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush)
+    k1 = _time_ms(lambda: po.quantize_mask(xq, mq), flush)
+    k2 = _time_ms(lambda: po.quantize_mask(xq, mq), flush)
+    p2 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush)
+    nbytes = 12 * d
+    bound_ms, bound_by = _bound(nbytes, 3 * d, card)
+    ms = statistics.median([k1, k2])
+    rows["pallas_ops.quantize_mask"] = dict(
+        ms=ms, plain_ms=statistics.median([p1, p2]), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by)
+    phase(4, "timing", f"pallas_ops.quantize_mask at D {d} f32, cold L2, "
+          f"median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms, library none (no single PyTorch call rounds to "
+          f"int32 with saturation and adds modulo 2^32), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "
+          f"{bound_ms / ms:.1%} of the bound")
+
+    mats = decode_matrices(quantize_lm_params(gpt2_params(dev)))
+    check(len(mats) == 72, f"{len(mats)} decode products")
+    # the library call takes the weights as [N, K] int8 and the scales in
+    # x's dtype, prepared once outside the timing
+    packed = [(q.t().contiguous(), s) for q, s in mats]
+    mm_rows = {}
+    for m in (DECODE_BATCH, 1):
+        xs = decode_inputs(m, dev, seed=17 + m)
+
+        def kernel():
+            for q, s in mats:
+                po.int8_matmul(xs[q.shape[0]], q, s)
+
+        def plain():
+            for q, s in mats:
+                po.int8_matmul_reference(xs[q.shape[0]], q, s)
+
+        def library():
+            for qt, s in packed:
+                torch.ops.aten._weight_int8pack_mm(xs[qt.shape[1]], qt, s)
+
+        lib_note, lib_err = None, None
+        try:
+            q0, s0 = mats[0]
+            lib_err = float((torch.ops.aten._weight_int8pack_mm(
+                xs[q0.shape[0]], packed[0][0], s0)
+                - po.int8_matmul_reference(xs[q0.shape[0]], q0, s0))
+                .abs().max())
+        except (RuntimeError, NotImplementedError) as e:
+            lib_note = str(e).splitlines()[0][:120]
+        # the host enqueues 72 calls behind a GPU sleep three times as long
+        # as that takes, so the interval holds device time alone
+        p1 = _time_ms(plain, flush, **_hidden(plain))
+        k1 = _time_ms(kernel, flush, **_hidden(kernel))
+        lib = (None if lib_note else
+               _time_ms(library, flush, **_hidden(library)))
+        k2 = _time_ms(kernel, flush, **_hidden(kernel))
+        p2 = _time_ms(plain, flush, **_hidden(plain))
+        nbytes, flops = decode_work(mats, m)
+        bound_ms, bound_by = _bound(nbytes, flops, card)
+        ms = statistics.median([k1, k2])
+        mm_rows[m] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
+                          library_ms=lib, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        lib_text = (f"_weight_int8pack_mm on [N, K] int8 {lib:.4f} ms (vs "
+                    f"plain max |err| {lib_err:.2e})" if lib is not None
+                    else f"none (_weight_int8pack_mm on CUDA tensors "
+                         f"raised: {lib_note})")
+        phase(4, "timing", f"pallas_ops.int8_matmul over one decode step's "
+              f"72 products (GPT-2-small widths, {GPT2_INT8_WEIGHTS} int8 "
+              f"weights) at M {m}, f32 x, cold L2, median of 50: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+              f"library {lib_text} (the plain version is the cuBLAS pair "
+              f"matmul(x, f32(q)) * s); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at float32 "
+              f"{card_peaks(card)[1] / 1e12:.0f} TFLOP/s on the CUDA cores) "
+              f"-> {bound_ms / ms:.1%} of the bound")
+    rows["pallas_ops.int8_matmul"] = mm_rows[DECODE_BATCH]
+    return rows
+
+
+def po_main_path_phase(n, dev):
+    """Kernels B7, B8 and B9 through their public entries at widths the
+    repo runs; the launch counts set to 0 before each path and read after."""
+    launches = {}
+    # B7: a stacked 10-client ResNet-56 variable tree, each leaf perturbed
+    # per client, weights the clients' sample counts
+    tree = tree_from_module(CIFARResNet(depth=56, num_classes=10))
+    leaves = tree_leaves(tree)
+    d = sum(leaf.numel() for leaf in leaves)
+    check(d == 860026, f"ResNet-56 has {d} variables")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    stacked = tree_map(lambda leaf: leaf.to(dev)[None] + 0.01 * torch.randn(
+        (MC_K,) + tuple(leaf.shape), generator=gen, device=dev), tree)
+    counts = torch.randint(100, 900, (MC_K,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    avg = po.agg_stacked_pallas(stacked, counts)
+    torch.cuda.synchronize()
+    got = read_launches()
+    check(got["pallas_ops.weighted_average"] == 1,
+          f"phase {n}: agg_stacked_pallas launched "
+          f"{got['pallas_ops.weighted_average']} weighted averages, not 1")
+    launches["pallas_ops.weighted_average"] = got[
+        "pallas_ops.weighted_average"]
+    flat = torch.cat([leaf.reshape(MC_K, -1) for leaf in
+                      tree_leaves(stacked)], dim=1)
+    out = torch.cat([leaf.reshape(-1) for leaf in tree_leaves(avg)])
+    abs_sum = po.normalized_weights(counts).abs() @ flat.abs()
+    e_plain = _order_err(out, po.weighted_average_flat_reference(flat,
+                                                                 counts),
+                         abs_sum, MC_K, f"phase {n}: agg_stacked_pallas")
+    by_leaf = {str(i): leaf for i, leaf in enumerate(tree_leaves(stacked))}
+    k1 = agg_stacked(by_leaf, counts.float())
+    e_k1 = _order_err(out, torch.cat([k1[str(i)].reshape(-1)
+                                      for i in range(len(by_leaf))]),
+                      abs_sum, MC_K, f"phase {n}: against agg_stacked")
+    phase(n, "main path", f"pallas_ops.agg_stacked_pallas over a stacked "
+          f"{MC_K}-client ResNet-56 variable tree ({len(leaves)} leaves, "
+          f"{d} values, integer sample counts): launches "
+          f"{launches['pallas_ops.weighted_average']} weighted_average; max "
+          f"|err| {e_plain:.2e} vs the plain version, {e_k1:.2e} vs "
+          f"agg_stacked (kernel 1, one launch a leaf); tolerance "
+          f"C·2^-24·Σ|terms|")
+    del stacked, flat, avg, k1, by_leaf
+
+    # B8: SecAgg's bulk round, 8 silos masking ResNet-56's flat update
+    updates = [0.01 * torch.randn(d, generator=gen, device=dev)
+               for _ in range(SILOS)]
+    masks = [secagg.prg_mask_like({"update": u}, seed=1000 + i)["update"]
+             for i, u in enumerate(updates)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    masked = [po.quantize_mask(u, m) for u, m in zip(updates, masks)]
+    qsum, agg_mask = masked[0], masks[0]
+    for w, m in zip(masked[1:], masks[1:]):
+        qsum, agg_mask = qsum + w, agg_mask + m
+    rec = secagg.dequantize(secagg.unmask_sum({"update": qsum},
+                                              {"update": agg_mask}))["update"]
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    check(got["pallas_ops.quantize_mask"] == SILOS,
+          f"phase {n}: {got['pallas_ops.quantize_mask']} quantize_mask "
+          f"launches for {SILOS} silos")
+    launches["pallas_ops.quantize_mask"] = got["pallas_ops.quantize_mask"]
+    for i, (u, m, w) in enumerate(zip(updates, masks, masked)):
+        two_step = secagg.mask_model(secagg.quantize({"u": u}),
+                                     {"u": m})["u"]
+        check(torch.equal(w, two_step), f"phase {n}: silo {i}'s masked "
+              f"words differ from mask_model(quantize(x))")
+    exact = torch.stack(updates).double().sum(0)
+    rec_err = float((rec.double() - exact).abs().max())
+    check(rec_err <= SILOS * 2.0 ** -17, f"phase {n}: the unmasked sum is "
+          f"{rec_err:.3g} from the float sum, past {SILOS}·2^-17")
+    phase(n, "main path", f"SecAgg round over ResNet-56's {d} parameters, "
+          f"{SILOS} silos: launches {launches['pallas_ops.quantize_mask']} "
+          f"quantize_mask (one a silo), every silo's words bit for bit the "
+          f"two-step mask_model(quantize(x)); the server's sum, unmasked and "
+          f"dequantized, {rec_err:.3g} from the float sum (bound "
+          f"{SILOS}·2^-17 = {SILOS * 2.0 ** -17:.3g}); masking, sum and "
+          f"unmask {round_ms:.2f} ms of host wall")
+    del updates, masks, masked, qsum, agg_mask, rec, exact
+
+    # B9: one decode step's 72 int8 products at GPT-2-small widths
+    params = gpt2_params(dev)
+    qparams = quantize_lm_params(params)
+    mats = decode_matrices(qparams)
+    n_weights = sum(q.numel() for q, _ in mats)
+    check(len(mats) == 72 and n_weights == GPT2_INT8_WEIGHTS
+          and all(q.dtype == torch.int8 for q, _ in mats),
+          f"phase {n}: {len(mats)} matrices, {n_weights} int8 weights")
+    q_err = 0.0
+    for blk, qblk in zip(params["blocks"], qparams["blocks"]):
+        for k in _MATMUL_KEYS:
+            # half a scale, and the float32 roundings of w / s and q · s
+            err = (blk[k] - dequantize_matrix(qblk[k])).abs()
+            check(bool((err <= (0.5 + 2.0 ** -16) * qblk[k]["s"]).all()),
+                  f"phase {n}: {k} dequantizes more than half a scale off")
+            q_err = max(q_err, float(err.max()))
+    del params
+    mm_err, mm_launches = {}, 0
+    for m in (DECODE_BATCH, 1):
+        xs = decode_inputs(m, dev, seed=19 + m)
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = [po.int8_matmul(xs[q.shape[0]], q, s) for q, s in mats]
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(got["pallas_ops.int8_matmul"] == len(mats),
+              f"phase {n}: {got['pallas_ops.int8_matmul']} int8_matmul "
+              f"launches at M {m}, not {len(mats)}")
+        mm_launches += got["pallas_ops.int8_matmul"]
+        mm_err[m] = max(_order_err(
+            o, po.int8_matmul_reference(xs[q.shape[0]], q, s),
+            po.int8_matmul_reference(xs[q.shape[0]].abs(), q.abs(), s),
+            q.shape[0], f"phase {n}: int8_matmul M {m}")
+            for o, (q, s) in zip(outs, mats))
+    launches["pallas_ops.int8_matmul"] = mm_launches
+    b1 = _bound(*decode_work(mats, 1), torch.cuda.get_device_name(0))
+    b64 = _bound(*decode_work(mats, DECODE_BATCH),
+                 torch.cuda.get_device_name(0))
+    phase(n, "main path", f"one decode step's int8 products at GPT-2-small "
+          f"widths (dim {GPT2['dim']}, {GPT2['layers']} layers; "
+          f"quantize_lm_params: {len(mats)} matrices, {n_weights} int8 "
+          f"weights, max |w - dequant| {q_err:.3g}, within half a scale): "
+          f"launches {mm_launches} int8_matmul ({len(mats)} at M "
+          f"{DECODE_BATCH} and {len(mats)} at M 1); max |err| vs plain "
+          f"{mm_err[DECODE_BATCH]:.2e} (M {DECODE_BATCH}), {mm_err[1]:.2e} "
+          f"(M 1), tolerance K·2^-24·(|x|@|q|)·s; bound of the step: M 1 "
+          f"{b1[0]:.4f} ms ({b1[1]}), M {DECODE_BATCH} {b64[0]:.4f} ms "
+          f"({b64[1]})")
+    return launches
+
+
 def main():
     name, _ = device_phase()
     # the port's device choice: the card, with TF32 off
@@ -2326,12 +2828,14 @@ def main():
     errs.update(wire_kernel_phase(dev))
     errs["fold_delta"] = fold_kernel_phase(dev)
     errs.update(mc_kernel_phase(dev))
+    errs.update(po_kernel_phase(dev))
     timing = timing_phase(dev, p_main, d_main, name)
     timing["flash_attention"] = flash_timing_phase(dev, name)
     wire_timing, codec_round_s = wire_timing_phase(dev, name)
     timing.update(wire_timing)
     timing["fold_delta"] = fold_timing_phase(dev, name)
     timing.update(mc_timing_phase(dev, name))
+    timing.update(po_timing_phase(dev, name))
     parity = parity_phase(dev)
     lm_parity_phase(dev)
     cs_parity_phase(dev)
@@ -2350,13 +2854,16 @@ def main():
     trace_fed_llm(last)
     last = None
     mc_launches = mc_main_path_phase(14, name, dev)
+    po_launches = po_main_path_phase(15, dev)
     # launches, each from its own path: the weighted reduce from both
     # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
     # 3, the flash forward from the BERT-tiny path's eval passes, the wire
     # kernels from the int8 cross-silo path, the fold from the fed-LLM path,
-    # the conv kernels from the multi-client conv pass
+    # the conv kernels from the multi-client conv pass, the pallas_ops
+    # kernels from their paths in phase 15
     launches = {
+        **po_launches,
         "mc_conv.fwd": mc_launches["mc_conv.fwd"],
         "mc_conv.wgrad": mc_launches["mc_conv.wgrad"],
         "fold_delta": llm_launches["fold_delta"],
@@ -2380,6 +2887,7 @@ def main():
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=errs[key], **timing[key]))
+    print(phase_walls(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ...ops.epilogue import flat_tree
+from ...utils.tree import leaf_generator
 
 DEFAULT_TARGETS = (r".*attention.*kernel", r".*(query|key|value|out).*kernel",
                    r".*Dense_\d+.*kernel",
@@ -68,11 +69,6 @@ def _is_target(path: str, shape: Sequence[int],
     return any(re.fullmatch(t, path, flags=re.IGNORECASE) for t in targets)
 
 
-def _leaf_generator(seed: int, index: int) -> torch.Generator:
-    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1)
-    return torch.Generator().manual_seed(int(state[0]))
-
-
 def init_lora(params: Any, rank: int = 8,
               targets: Optional[Sequence[str]] = None, seed: int = 0,
               dtype: torch.dtype = torch.float32,
@@ -88,7 +84,7 @@ def init_lora(params: Any, rank: int = 8,
         p = _path_str(path)
         if _is_target(p, tuple(leaf.shape), targets):
             d_in, d_out = leaf.shape
-            a = torch.randn((d_in, rank), generator=_leaf_generator(seed, i))
+            a = torch.randn((d_in, rank), generator=leaf_generator(seed, i))
             lora[p] = {"a": (a * 0.01).to(dtype),
                        "b": torch.zeros((rank, d_out), dtype=dtype)}
     if not lora:

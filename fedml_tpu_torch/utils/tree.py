@@ -14,6 +14,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional
 
+import numpy as np
+import torch
+
 #: stands for a leaf in a tree structure (``tree_structure``)
 LEAF = object()
 
@@ -83,3 +86,11 @@ def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
     if next(it, LEAF) is not LEAF:
         raise ValueError("more leaves than the structure has places")
     return out
+
+
+def leaf_generator(seed: int, index: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` for the draws of leaf ``index`` of a tree,
+    seeded from ``(seed, index)`` as JAX folds a leaf's index into its key.
+    The numbers are not JAX's; the distributions are."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1)
+    return torch.Generator().manual_seed(int(state[0]))

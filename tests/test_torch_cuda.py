@@ -2,9 +2,12 @@
 weighted reduce, the fused epilogue, the flash-attention forward, the
 int8 wire codec's quantize and dequantize and top-k selection on ties, and
 the fed-LLM adapter fold (bit for bit), one fed-LLM round on the card
-against the same round on the CPU, and the multi-client conv's forward and
+against the same round on the CPU, the multi-client conv's forward and
 weight-gradient kernels (forward, dx and dw; within the float32 error of
-sums in another order, √terms · 2^-23 · Σ|terms|, and one bfloat16 step).  Every test here needs an NVIDIA card
+sums in another order, √terms · 2^-23 · Σ|terms|, and one bfloat16 step),
+and ``ops/pallas_ops``' weighted average and int8 product (within the
+float32 bound of a sum of C or K terms) and SecAgg's quantize-mask (bit for
+bit), with SecAgg's round and the int8 weight quantization card against CPU.  Every test here needs an NVIDIA card
 and ``nvcc``: the kernel has no CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
@@ -881,3 +884,269 @@ def test_mc_conv_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="on the CPU or on one card"):
         mc.mc_conv_fwd(x, w.cpu())
     assert mc.LAUNCHES == before
+
+
+# ------------------------------------- ops/pallas_ops: kernels 7, 8 and 9
+@pytest.fixture
+def card_fp32(card):
+    """The card, with TF32 off for the plain versions' cuBLAS products, as
+    the port's ``get_device`` sets it."""
+    from fedml_tpu_torch.ml.engine.device import get_device
+
+    return get_device(Config(device_type="cuda"))
+
+
+def _misaligned(t, offset):
+    """``t``'s values in a tensor whose data starts ``offset`` elements into
+    its storage (not 16-byte aligned for offset 1)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+#: (C, D, x dtype, weights, storage offset of x): the CPU tests' cases,
+#: weights of every kernel type, ragged D (one column a thread), a
+#: misaligned x, 1,024 clients and the ResNet-56 tree's flat [10, 860,026]
+WAVG_CARD_CASES = {
+    "jax_test": (10, 3000, torch.float32, "float", 0),
+    "zero_weights": (10, 3000, torch.float32, "some_zero", 0),
+    "all_zero_weights": (4, 777, torch.float32, "zero", 0),
+    "one_client": (1, 777, torch.float32, "float", 0),
+    "int32_weights": (10, 3000, torch.float32, "int32", 0),
+    "int64_weights_ragged": (10, 3001, torch.float32, "int64", 0),
+    "f64_weights": (5, 1024, torch.float32, "float64", 0),
+    "bf16_ragged": (6, 777, torch.bfloat16, "float", 0),
+    "bf16": (6, 1024, torch.bfloat16, "int32", 0),
+    "misaligned": (10, 3000, torch.float32, "float", 1),
+    "c1024": (1024, 4099, torch.float32, "float", 0),
+    "resnet56": (10, 860026, torch.float32, "int32", 0),
+}
+
+
+def _wavg_card_inputs(name, card):
+    c, d, dtype, kind, off = WAVG_CARD_CASES[name]
+    gen = torch.Generator().manual_seed(sorted(WAVG_CARD_CASES).index(name))
+    x = torch.randn(c, d, generator=gen).to(dtype)
+    if kind in ("int32", "int64"):
+        w = torch.randint(1, 600, (c,), generator=gen,
+                          dtype=getattr(torch, kind))
+    else:
+        w = torch.rand(c, generator=gen, dtype=torch.float64)
+        w = w.float() if kind != "float64" else w
+        if kind == "some_zero":
+            w[::3] = 0
+        elif kind == "zero":
+            w.zero_()
+    return _misaligned(x.to(card), off), w.to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WAVG_CARD_CASES))
+def test_weighted_average_kernel_matches_plain_version(name, card_fp32):
+    """Within C · 2^-24 · Σ_c |wn_c x_c|: a float32 sum of C terms in the
+    kernel's order (clients in turn) against cuBLAS's."""
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    x, w = _wavg_card_inputs(name, card_fp32)
+    before = po.LAUNCHES["pallas_ops.weighted_average"]
+    got = po.weighted_average_flat(x, w)
+    torch.cuda.synchronize()
+    assert po.LAUNCHES["pallas_ops.weighted_average"] == before + 1
+    ref = po.weighted_average_flat_reference(x, w)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    wn = po.normalized_weights(w)
+    torch.testing.assert_close(wn, po.normalized_weights(w.cpu()).to(
+        wn.device), rtol=0, atol=0)
+    bound = x.shape[0] * 2.0 ** -24 * (wn.abs() @ x.float().abs()) + 1e-30
+    excess = float(((got - ref).abs() - bound).max())
+    assert excess <= 0, f"{name}: {excess:.3g} past the bound"
+
+
+@pytest.mark.gpu
+def test_agg_stacked_pallas_is_one_launch_and_casts_back(card_fp32):
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    gen = torch.Generator().manual_seed(3)
+    tree = {"w": torch.randn(6, 17, 5, generator=gen).to(card_fp32),
+            "b": torch.randn(6, 9, generator=gen).to(card_fp32)
+            .to(torch.bfloat16),
+            "n": [torch.randn(6, 4, generator=gen).to(card_fp32)]}
+    w = torch.tensor([3, 1, 4, 1, 5, 9], device=card_fp32)
+    before = po.LAUNCHES["pallas_ops.weighted_average"]
+    got = po.agg_stacked_pallas(tree, w)
+    torch.cuda.synchronize()
+    assert po.LAUNCHES["pallas_ops.weighted_average"] == before + 1
+    flat = torch.cat([tree["b"].float(), tree["n"][0],
+                      tree["w"].reshape(6, -1)], dim=1)
+    ref = po.weighted_average_flat_reference(flat, w)
+    assert got["b"].dtype == torch.bfloat16 and got["w"].dtype == torch.float32
+    torch.testing.assert_close(got["b"], ref[:9].to(torch.bfloat16),
+                               atol=1e-6, rtol=2.0 ** -7)
+    torch.testing.assert_close(got["n"][0], ref[9:13], **F32_TOL)
+    torch.testing.assert_close(got["w"], ref[13:].reshape(17, 5), **F32_TOL)
+
+
+def _qmask_card_inputs(d, seed):
+    """x with the CPU tests' edge values (±40000, ±inf, NaN, exact halves
+    2^-17·(2k+1)) and masks near 2^32 − 1 that wrap; uint32 bits as int32."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(d, generator=gen)
+    special = torch.tensor([40000.0, -40000.0, float("inf"), -float("inf"),
+                            float("nan"), 32767.99, -32768.0, 32768.0])
+    halves = 2.0 ** -17 * (2 * torch.arange(-20, 20) + 1).float()
+    edge = torch.cat([special, halves])[:d]
+    x[:edge.numel()] = edge
+    mask = torch.randint(-2 ** 31, 2 ** 31, (d,), generator=gen,
+                         dtype=torch.int32)
+    mask[:min(d, 64)] = -1 - torch.arange(min(d, 64), dtype=torch.int32)
+    return x, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,offset", [
+    (1, torch.float32, 0), (3, torch.float32, 0), (777, torch.float32, 0),
+    (1024, torch.float32, 0), (777, torch.float32, 1),
+    (1025, torch.bfloat16, 0), (860026, torch.float32, 0)])
+def test_quantize_mask_kernel_matches_bit_for_bit(d, dtype, offset, card):
+    """The kernel, the plain version on the card and the plain version on
+    the CPU give the same words."""
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    x, mask = _qmask_card_inputs(d, d + offset)
+    x = x.to(dtype)
+    xc, mc = _misaligned(x.to(card), offset), _misaligned(mask.to(card),
+                                                          offset)
+    before = po.LAUNCHES["pallas_ops.quantize_mask"]
+    got = po.quantize_mask(xc, mc)
+    torch.cuda.synchronize()
+    assert po.LAUNCHES["pallas_ops.quantize_mask"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, po.quantize_mask_reference(xc, mc))
+    assert torch.equal(got.cpu(), po.quantize_mask(x, mask))
+    as_u32 = po.quantize_mask(xc, mc.view(torch.uint32))
+    assert as_u32.dtype == torch.uint32
+    assert torch.equal(as_u32.view(torch.int32), got)
+
+
+@pytest.mark.gpu
+def test_secagg_round_on_the_card_matches_the_cpu(card):
+    """quantize, mask_model, unmask_sum and dequantize on the card give the
+    CPU's bits; prg_mask_like gives the same masks on both."""
+    from fedml_tpu_torch.core.mpc import secagg as sa
+
+    x, _ = _qmask_card_inputs(1000, 11)
+    tree = {"w": x.reshape(40, 25)}
+    out = {}
+    for dev in ("cpu", card):
+        t = {"w": tree["w"].to(dev)}
+        q = sa.quantize(t, 3000.0)
+        m = sa.prg_mask_like(q, seed=5)
+        un = sa.unmask_sum(sa.mask_model(q, m), m)
+        out[str(dev)] = (m["w"].cpu(), un["w"].cpu(),
+                         sa.dequantize(un, scale=3000.0)["w"].cpu())
+    for a, b in zip(*out.values()):
+        assert torch.equal(a, b)
+
+
+#: (M, K, N, x dtype, storage offset of q, extra row stride of x): the
+#: CPU test's [4, 48] @ [48, 700], the GPT-2-small decode widths at M = 1
+#: and 64 (wq, w1 and w2), ragged M, K and N, a misaligned q, a strided x,
+#: and M past one tile row
+MM_CARD_CASES = {
+    "jax_test": (4, 48, 700, torch.float32, 0, 0),
+    "jax_test_m1_bf16": (1, 48, 700, torch.bfloat16, 0, 0),
+    "wq_m1": (1, 768, 768, torch.float32, 0, 0),
+    "wq_m64": (64, 768, 768, torch.float32, 0, 0),
+    "w1_m64": (64, 768, 3072, torch.float32, 0, 0),
+    "w2_m1": (1, 3072, 768, torch.float32, 0, 0),
+    "w2_m64_bf16": (64, 3072, 768, torch.bfloat16, 0, 0),
+    "ragged": (17, 100, 203, torch.float32, 0, 0),
+    "misaligned_q": (8, 64, 256, torch.float32, 1, 0),
+    "strided_x": (5, 96, 128, torch.float32, 0, 7),
+    "m130": (130, 256, 192, torch.float32, 0, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MM_CARD_CASES))
+def test_int8_matmul_kernel_matches_plain_version(name, card_fp32):
+    """Within K · 2^-24 · (|x| @ |q|) · s: sums of K float32 products in the
+    kernel's order (split K, each split in order) against cuBLAS's."""
+    from fedml_tpu_torch.ops import pallas_ops as po
+    from fedml_tpu_torch.serving.quantization import quantize_matrix_int8
+
+    m, k, n, dtype, q_off, pad = MM_CARD_CASES[name]
+    gen = torch.Generator().manual_seed(sorted(MM_CARD_CASES).index(name))
+    qs = quantize_matrix_int8(torch.randn(k, n, generator=gen).to(card_fp32)
+                              * k ** -0.5)
+    q = _misaligned(qs["q"], q_off)
+    x = torch.randn(m, k + pad, generator=gen).to(dtype).to(card_fp32)[:, :k]
+    before = po.LAUNCHES["pallas_ops.int8_matmul"]
+    got = po.int8_matmul(x, q, qs["s"])
+    torch.cuda.synchronize()
+    assert po.LAUNCHES["pallas_ops.int8_matmul"] == before + 1
+    ref = po.int8_matmul_reference(x, q, qs["s"])
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    bound = k * 2.0 ** -24 * po.int8_matmul_reference(
+        x.abs(), q.abs(), qs["s"]) + 1e-30
+    excess = float(((got - ref).abs() - bound).max())
+    assert excess <= 0, f"{name}: {excess:.3g} past the bound"
+    assert torch.equal(got, po.int8_matmul(x, q, qs["s"])), \
+        f"{name}: differs from run to run"
+
+
+@pytest.mark.gpu
+def test_quantize_matrix_int8_on_the_card_matches_the_cpu(card):
+    from fedml_tpu_torch.serving.quantization import quantize_matrix_int8
+
+    w = torch.randn(768, 3072, generator=torch.Generator().manual_seed(9))
+    w[:, 0] = 0.0
+    got, want = quantize_matrix_int8(w.to(card)), quantize_matrix_int8(w)
+    assert torch.equal(got["q"].cpu(), want["q"])
+    assert torch.equal(got["s"].cpu(), want["s"])
+
+
+@pytest.mark.gpu
+def test_pallas_ops_kernels_refuse_what_they_do_not_take(card):
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    before = dict(po.LAUNCHES)
+    x, w = torch.zeros(3, 8, device=card), torch.ones(3, device=card)
+    with pytest.raises(TypeError, match="weighted_average"):
+        po.weighted_average_flat(x.half(), w)
+    with pytest.raises(TypeError, match="weighted_average"):
+        po.weighted_average_flat(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="on the CPU or on one card"):
+        po.weighted_average_flat(x, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        po.weighted_average_flat(torch.zeros(8, 3, device=card).t(), w)
+    with pytest.raises(ValueError, match=r"\[C, D\]"):
+        po.weighted_average_flat(x, torch.ones(4, device=card))
+    v, m = torch.zeros(8, device=card), torch.zeros(8, device=card,
+                                                   dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        po.quantize_mask(v, m.long())
+    with pytest.raises(TypeError, match="quantize_mask"):
+        po.quantize_mask(v.half(), m)
+    with pytest.raises(ValueError, match="one non-empty shape"):
+        po.quantize_mask(v, m[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        po.quantize_mask(v[::2], m[::2])
+    a = torch.zeros(2, 16, device=card)
+    q = torch.zeros(16, 4, device=card, dtype=torch.int8)
+    s = torch.ones(4, device=card)
+    with pytest.raises(TypeError, match="int8 q"):
+        po.int8_matmul(a, q.float(), s)
+    with pytest.raises(TypeError, match="float32 s"):
+        po.int8_matmul(a, q, s.to(torch.bfloat16))
+    with pytest.raises(ValueError, match=r"x \[M, K\]"):
+        po.int8_matmul(a[:, :8], q, s)
+    with pytest.raises(ValueError, match="unit"):
+        po.int8_matmul(torch.zeros(16, 2, device=card).t(), q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        po.int8_matmul(a, torch.zeros(4, 16, device=card,
+                                      dtype=torch.int8).t(), s)
+    assert po.LAUNCHES == before

@@ -31,7 +31,9 @@ def _imported_roots(tree):
 
 def test_the_port_has_modules_to_check():
     for rel in ("ops/epilogue.py", "ops/pallas_attention.py",
-                "ops/pallas_mc_conv.py",
+                "ops/pallas_mc_conv.py", "ops/pallas_ops.py",
+                "core/mpc/secagg.py", "core/mpc/lightsecagg.py",
+                "serving/quantization.py",
                 "models/nlp.py", "data/natural.py", "data/tff_text.py",
                 "ops/wire_compression.py", "utils/compression.py",
                 "utils/serialization.py", "utils/tree.py",
