@@ -6,9 +6,11 @@ layouts: ``[B, H, T, D]`` for ``flash_attention`` and
 
 * The Pallas kernel ``_flash_kernel_residuals`` (body ``_flash_kernel``) is
   ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a`` built and bound by
-  ``ops/cuda_build.py``; its source note says what bounds it and what the
-  design does about that.  It returns ``o`` and the softmax residuals
-  ``l`` (row sum) and ``m`` (row max) in float32.
+  ``ops/cuda_build.py``: bfloat16 on the tensor cores (mma.sync, p kept in
+  registers as high and low bfloat16 parts), float32 with FMAs; its source
+  note says what bounds it and what the design does about that.  It
+  returns ``o`` and the softmax residuals ``l`` (row sum) and ``m`` (row
+  max) in float32.
 * ``_reference``, ``_reference_residuals`` and ``merge_attention_partials``
   are the JAX package's jnp functions, op for op, in torch.
   ``_reference_residuals`` is the kernel's plain version.
@@ -18,11 +20,12 @@ layouts: ``[B, H, T, D]`` for ``flash_attention`` and
   saves ``(q, k, v, o, l, m)``, the backward is the blockwise recomputation.
 
 Where it runs: a CUDA tensor launches the kernel, or the wrapper raises on
-what the kernel does not take (a head dim other than 32, 64 or 128, another
-dtype than float32 or bfloat16).  CPU tensors take the plain version; that
-is the only way to it.  The JAX package, off the TPU, returns ``_reference``
-from ``flash_attention`` and autodiffs it; the port runs ``_FlashCore`` on
-both devices, so the CPU computes what the card does.
+what the kernel does not take (a head dim other than 16, 32, 64 or 128,
+another dtype than float32 or bfloat16).  CPU tensors take the plain
+version; that is the only way to it.  The JAX package, off the TPU,
+returns ``_reference`` from ``flash_attention`` and autodiffs it; the port
+runs ``_FlashCore`` on both devices, so the CPU computes what the card
+does.
 
 Lengths: ``flash_attention`` pads T to its block sizes and masks the padded
 keys with ``t_valid`` (the JAX package's ``:332-345``).  The Pallas grid
@@ -45,7 +48,7 @@ from . import cuda_build
 
 NEG_INF = -1e30
 #: the head dims the CUDA kernel is built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 #: launches of the CUDA kernel, counted where the wrapper launches it
 LAUNCHES = {"flash_attention": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,7 +134,7 @@ def _kernel_lib() -> ctypes.CDLL:
 def _rows_aligned16(x: torch.Tensor) -> bool:
     """Every [.., D] row of ``x`` is contiguous and starts 16-byte aligned,
     as the kernel's tile loads need (a contiguous tensor's rows are: D is
-    32, 64 or 128)."""
+    16, 32, 64 or 128)."""
     per = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(s % per == 0 for s in x.stride()[:-1]))

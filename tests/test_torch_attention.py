@@ -8,8 +8,9 @@ its Pallas kernel in interpret mode (``interpret=True``), whose gradient is
 the custom VJP's blockwise backward.
 
 Cases: causal and not, T of 80 (one block, nothing padded) and 200 (padded
-to 256, the padded keys masked by ``t_valid``), head dims 32 and 64,
-float32 and bfloat16; a non-causal residual call with ``Tk != T``; the
+to 256, the padded keys masked by ``t_valid``), head dims 16 (the
+functional LM's default width: dim 64 over 4 heads), 32 and 64, float32
+and bfloat16; a non-causal residual call with ``Tk != T``; the
 merge of two partials.
 
 Tolerances, with their reasons:
@@ -43,7 +44,7 @@ GRAD = dict(atol=1e-4, rtol=1e-4)
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
 CASES = [(causal, t, d, dt) for causal in (True, False) for t in (80, 200)
-         for d in (32, 64) for dt in ("f32", "bf16")]
+         for d in (16, 32, 64) for dt in ("f32", "bf16")]
 
 
 def _qkv(seed, t, d, dt, tk=None, b=2, h=2):
@@ -91,7 +92,8 @@ def test_forward_matches_jax_reference(causal, t, d, dt):
 
 
 @pytest.mark.parametrize("causal,t,d", [(c, t, d) for c in (True, False)
-                                        for t in (80, 200) for d in (32, 64)])
+                                        for t in (80, 200)
+                                        for d in (16, 32, 64)])
 def test_forward_matches_interpret_kernel(causal, t, d):
     """Against the Pallas kernel itself: ``flash_attention`` (T = 200 pads
     to 256 and masks), and ``flash_attention_residuals`` at blocks of 40,
