@@ -8,11 +8,14 @@ output ``[K, B, OH, OW, Co]`` (the JAX package's layouts).
 Names, JAX package → port:
 
 * ``_fwd_kernel`` (Pallas; wrapper ``_mc_conv_fwd``) → ``csrc/mc_conv.cu``
-  ``fwd_kernel``, wrapper ``mc_conv_fwd``, plain version
+  ``fwd_mma_kernel`` / ``fwd_wgmma_kernel`` (bfloat16) and ``fwd_kernel``
+  (float32), wrapper ``mc_conv_fwd``, plain version
   ``mc_conv_fwd_reference``;
-* ``_wgrad_kernel`` (wrapper ``_mc_conv_wgrad``) → ``wgrad_kernel`` and a
-  split sum, wrapper ``mc_conv_wgrad``, plain version
-  ``mc_conv_wgrad_reference``;
+* ``_wgrad_kernel`` (wrapper ``_mc_conv_wgrad``) → ``wgrad_mma_kernel`` /
+  ``wgrad_wgmma_kernel`` (bfloat16, the pixel splits of a client added in
+  a thread-block cluster) and ``wgrad_kernel`` (float32), each with a
+  split sum where a client's pixels need more blocks than a cluster holds,
+  wrapper ``mc_conv_wgrad``, plain version ``mc_conv_wgrad_reference``;
 * ``mc_conv`` (a ``jax.custom_vjp``) → ``mc_conv``, the autograd Function
   ``MCConv``;
 * ``conv_for_clients(impl=...)``: ``"pallas"`` (or None on a TPU) →

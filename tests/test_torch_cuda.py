@@ -852,11 +852,35 @@ MC_CASES = {
     "resnet56_16_16_s1": (10, 32, 32, 32, 16, 16, 3, 3, (1, 1)),
     "resnet56_16_32_s2": (10, 32, 32, 32, 16, 32, 3, 3, (2, 2)),
 }
+#: ResNet-56's deeper shapes and its stem at 10 clients of batch 32; one
+#: client of batch 64 on 32x32, whose weight gradient splits its pixels
+#: over more blocks than one thread-block cluster holds (the float32
+#: scratch of partials and their ordered sum); and 3 channels on rows of 7
+#: pixels, whose image rows are no 16-byte copy either (the kernels' scalar
+#: staging)
+MC_DEEP_CASES = {
+    "resnet56_stem_3_16": (10, 32, 32, 32, 3, 16, 3, 3, (1, 1)),
+    "resnet56_32_32_s1": (10, 32, 16, 16, 32, 32, 3, 3, (1, 1)),
+    "resnet56_32_64_s2": (10, 32, 16, 16, 32, 64, 3, 3, (2, 2)),
+    "resnet56_32_64_1x1_s2": (10, 32, 16, 16, 32, 64, 1, 1, (2, 2)),
+    "resnet56_64_64_s1": (10, 32, 8, 8, 64, 64, 3, 3, (1, 1)),
+    "one_client_past_a_cluster": (1, 64, 32, 32, 16, 16, 3, 3, (1, 1)),
+    "ci3_rows_of_7": (2, 2, 7, 7, 3, 16, 3, 3, (1, 1)),
+}
+
+
+def _mc_case(name):
+    """(shape, seed): MC_CASES are seeded by their sorted index and
+    MC_DEEP_CASES from 100 on, so a case added to one leaves the other's
+    inputs as they are."""
+    if name in MC_CASES:
+        return MC_CASES[name], sorted(MC_CASES).index(name)
+    return MC_DEEP_CASES[name], 100 + sorted(MC_DEEP_CASES).index(name)
 
 
 def _mc_inputs(name, dtype, card):
-    k, b, h, w_, ci, co, kh, kw, stride = MC_CASES[name]
-    gen = torch.Generator().manual_seed(sorted(MC_CASES).index(name))
+    (k, b, h, w_, ci, co, kh, kw, stride), seed = _mc_case(name)
+    gen = torch.Generator().manual_seed(seed)
     x = torch.randn(k, b, h, w_, ci, generator=gen)
     w = torch.randn(k, kh, kw, ci, co, generator=gen) * (ci * kh * kw) ** -0.5
     oh, ow = -(-h // stride[0]), -(-w_ // stride[1])
@@ -880,7 +904,7 @@ def _assert_sums_close(got, ref, abs_terms, n, label):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", sorted(MC_CASES))
+@pytest.mark.parametrize("name", sorted(MC_CASES) + sorted(MC_DEEP_CASES))
 def test_mc_conv_kernels_match_plain_versions(name, dtype, card):
     """Forward, dx and dw on the card against the plain versions on the
     same inputs.  dx of a stride-1 odd conv is the forward kernel on
