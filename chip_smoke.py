@@ -17,7 +17,7 @@ raises and ends the run with a non-zero exit:
    the unit-test cases and at the main paths' shapes, with the tolerance:
    the weighted reduce (also on a column range), the four channels of the
    fused epilogue, the async ``fold_buffer`` (its ``none`` channel), the
-   flash-attention forward (o, l and m; causal and not, T of 80, 200
+   flash-attention forward (o, l and m; causal and not, T of 32, 80, 200
    and 512, head dims 16, 32, 64 and 128, float32 and bfloat16, keys of
    another length than the queries, scores of large magnitude, no key or
    one, and a causal length of 97), the int8 wire codec's quantize
@@ -27,18 +27,19 @@ raises and ends the run with a non-zero exit:
    the CPU's, bit for bit, and the fed-LLM adapter fold, bit for bit
    (float32 and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37, BERT-tiny's
    10-leaf rank-4 table, rank-3 leaves that are no multiples of 4, and a
-   misaligned buffer), and the multi-client conv's forward and
-   weight-gradient kernels (the forward, dx through the forward kernel and
-   dw, at ``tests/test_mc_conv.py``'s five cases and ResNet-56's eight
-   conv shapes at 10 clients of batch 32, float32 and bfloat16), and
+   misaligned buffer, in both its launch forms: one flat range and a
+   device table), and the multi-client conv's
+   forward and weight-gradient kernels (the forward, dx through the
+   forward kernel and dw, at ``tests/test_mc_conv.py``'s five cases and
+   ResNet-56's eight conv shapes at 10 clients of batch 32, float32 and
+   bfloat16), and
    ``ops/pallas_ops``' weighted average and int8 product (within the
    float32 bound of a sum of C or K terms; the tests' cases, ragged and
    misaligned operands, and the main paths' shapes) and quantize-mask
    (bit for bit, with out-of-range, infinite and NaN values);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
-   could take (the multi-client conv also beside the per-client loop of
-   library convs; the flash forward at both language-model paths' eval
+   could take (the flash forward at both language-model paths' eval
    shapes, bfloat16 and float32, and at 512 tokens);
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
@@ -82,8 +83,9 @@ raises and ends the run with a non-zero exit:
     eval every round, raw and with ``wire_compression: int8``, in turns:
     rounds/s, train tokens/s per silo, eval seconds, wire bytes and the
     uplink's reduction against the full model's bytes, and the launches
-    the protocol implies (the fold and the weighted reduce once a round,
-    the flash kernel once per layer of every eval batch);
+    the protocol implies (the fold, as one flat range, and the weighted
+    reduce once a round, the flash kernel once per layer of every eval
+    batch);
 13. trace — one silo's local epoch of that path under ``torch.profiler``,
     as phases 8 and 10;
 14. main path, multi-client conv — ResNet-56's 57 convolutions in network
@@ -92,9 +94,9 @@ raises and ends the run with a non-zero exit:
     through ``ops/pallas_mc_conv.conv_for_clients``: the launches the
     shapes imply (109 forward kernels, 57 weight gradients, 4 library
     input gradients), the pass in float32 and bfloat16 held to the same
-    pass in float64 (no farther from it than the per-client library
-    loop's), and its device time against that loop, the grouped library
-    call and its summed bound;
+    pass in float64 (no farther from it than the library arm's, one
+    grouped ``F.conv2d`` a conv), and its device time against that arm
+    and its summed bound;
 15. main path, ``ops/pallas_ops`` — each of its three kernels driven at a
     width the repo runs, through its public entries: the weighted average
     (``agg_stacked_pallas``) over a stacked 10-client ResNet-56 variable
@@ -283,19 +285,22 @@ def check(cond, msg):
 
 
 def reset_launches():
-    for counts in (epilogue.LAUNCHES, attn.LAUNCHES, wc.LAUNCHES,
-                   mcc.LAUNCHES, po.LAUNCHES):
+    for counts in (epilogue.LAUNCHES, epilogue.FOLD_FORMS, attn.LAUNCHES,
+                   wc.LAUNCHES, mcc.LAUNCHES, po.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
-    """The launch counts, with ``fused_epilogue`` the sum of its channels
-    and the wire kernels as ``wire_compression.<kernel>``."""
+    """The launch counts, with ``fused_epilogue`` the sum of its channels,
+    the wire kernels as ``wire_compression.<kernel>`` and the fold's
+    launches by form as ``fold_delta.<form>``."""
     counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES, **mcc.LAUNCHES,
                   **po.LAUNCHES,
                   **{f"wire_compression.{k}": n
-                     for k, n in wc.LAUNCHES.items()})
+                     for k, n in wc.LAUNCHES.items()},
+                  **{f"fold_delta.{k}": n
+                     for k, n in epilogue.FOLD_FORMS.items()})
     counts["fused_epilogue"] = sum(
         n for k, n in counts.items() if k.startswith("fused_epilogue."))
     return counts
@@ -599,13 +604,14 @@ def _flash_err(q, k, v, causal, t_valid, label, flips=None):
 
 def flash_kernel_phase(dev):
     """Kernel B12 against ``_reference_residuals`` on o, l and m: causal and
-    not, T of 80, 200 and 512, head dims 16, 32, 64 and 128, float32 and
-    bfloat16; T = 200 also padded to 256 with ``t_valid`` 200, as
+    not, T of 32, 80, 200 and 512, head dims 16, 32, 64 and 128, float32
+    and bfloat16; T = 200 also padded to 256 with ``t_valid`` 200, as
     ``flash_attention`` pads it; keys of another length (160, and a ragged
     37) for 80 queries; q and k times 8, so the running max rescales often;
     ``t_valid`` of 0 (no key: l 0, m -1e30, o 0) and 1; a causal T of 97,
     a multiple of no tile; rows that do not start 16-byte aligned; and the
-    BERT-tiny path's eval shape.  In bfloat16 each case also holds the
+    eval shapes of the BERT-tiny path (bfloat16) and of the fed-LLM path
+    (float32).  In bfloat16 each case also holds the
     share of o's values that round otherwise than the plain version's."""
     gen = torch.Generator().manual_seed(2)
     errs, flips = {}, {}
@@ -616,7 +622,7 @@ def flash_kernel_phase(dev):
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     for causal in (True, False):
         mode = "causal" if causal else "full"
-        for t in (80, 200, 512):
+        for t in (32, 80, 200, 512):
             for d in attn.HEAD_DIMS:
                 for dt, dtype in dtypes.items():
                     label = f"{mode}_T{t}_D{d}_{dt}"
@@ -645,6 +651,8 @@ def flash_kernel_phase(dev):
     q, k, v = (x[..., 1:] for x in _flash_qkv(2, 2, 80, 65, torch.bfloat16,
                                               gen, dev))
     run("causal_T80_misaligned_bf16", q, k, v, True, 80)
+    q, k, v = _flash_qkv(*LLM_EVAL_SHAPE, torch.float32, gen, dev)
+    run("causal_fed_llm_eval_shape_f32", q, k, v, True, LLM_EVAL_SHAPE[2])
     q, k, v = _flash_qkv(*LM_EVAL_SHAPE, torch.bfloat16, gen, dev)
     main = _flash_err(q, k, v, True, LM_EVAL_SHAPE[2], "eval shape", flips)
     worst = {dt: max(e for k_, e in errs.items() if k_.endswith(dt))
@@ -653,10 +661,11 @@ def flash_kernel_phase(dev):
         "times8" in k_ or "t_valid" in k_ or "Tk" in k_ or "T97" in k_))
         for dt in dtypes}
     phase(3, "kernels", f"flash_attention vs plain version, max |err| over "
-          f"o, l, m: {len(errs)} cases (causal and full, T 80/200/512, D "
+          f"o, l, m: {len(errs)} cases (causal and full, T 32/80/200/512, D "
           f"{'/'.join(map(str, attn.HEAD_DIMS))}, f32 and bf16, T 256 at "
           f"t_valid 200, Tk 160 and 37 for T 80, q and k x 8, t_valid 0 "
-          f"and 1, causal T 97, misaligned rows): worst f32 "
+          f"and 1, causal T 97, misaligned rows, the fed-LLM eval shape "
+          f"{list(LLM_EVAL_SHAPE)} f32 causal): worst f32 "
           f"{worst['f32']:.2e}, worst bf16 {worst['bf16']:.2e}; edge cases "
           f"(Tk, x 8, t_valid, T 97) f32 {edge['f32']:.2e}, bf16 "
           f"{edge['bf16']:.2e}; eval shape {list(LM_EVAL_SHAPE)} bf16 causal "
@@ -1006,6 +1015,27 @@ def _adapter_tree(rank, dtype, dev, gen, misalign=0):
     return a, d, a_buf[misalign:], d_buf
 
 
+def _lora_sizes(rank):
+    """The values of BERT-tiny's 10 adapter leaves at ``rank``."""
+    return [n for d_in, d_out in LORA_TARGETS
+            for n in (d_in * rank, rank * d_out)]
+
+
+def _gapped_tree(sizes, gap, dtype, dev, gen):
+    """Adapter leaves of ``sizes`` values in one buffer, back to back, and
+    a float32 delta whose leaves lie ``gap`` values apart in theirs: a
+    layout that is no flat range."""
+    a_buf = (torch.randn(sum(sizes), generator=gen) * 0.01).to(dtype).to(dev)
+    d_buf = (torch.randn(sum(sizes) + gap * len(sizes), generator=gen)
+             * 1e-3).to(dev)
+    a, d, off = [], [], 0
+    for i, n in enumerate(sizes):
+        a.append(a_buf[off:off + n])
+        d.append(d_buf[off + gap * i:off + gap * i + n])
+        off += n
+    return a, d
+
+
 def _tied_delta(seed):
     """4,096 float32 values of four magnitudes with random signs: the k-th
     largest |x| of ``topk:0.1`` falls inside a run of ties."""
@@ -1047,11 +1077,34 @@ def fold_kernel_phase(dev):
     torch.cuda.synchronize()
     for g, w in zip(tree_leaves(a), tree_leaves(want)):
         _same_bits(g, w, "fold_delta in place")
+    # both launch forms of fold_plan: the cases above are one flat range;
+    # a delta with gaps between its leaves, BERT-tiny's 10 or 120 others,
+    # takes the device table
+    n_table = 0
+    for sizes, gap in ((_lora_sizes(4), 3),
+                       ([1 + (97 * i) % 700 for i in range(120)], 5)):
+        for dt in (torch.float32, torch.bfloat16):
+            a, d = _gapped_tree(sizes, gap, dt, dev, gen)
+            for out in (None, a):
+                want = epilogue.fold_delta_reference(a, d, 0.37)
+                before = dict(epilogue.FOLD_FORMS)
+                got = epilogue.fold_delta(a, d, 0.37, out=out)
+                torch.cuda.synchronize()
+                took = [k for k, v in epilogue.FOLD_FORMS.items()
+                        if v != before[k]]
+                check(took == ["table"], f"fold_delta with gaps {dt}: took "
+                      f"the launch forms {took}")
+                for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                    err = max(err, _same_bits(g, w, f"fold_delta table "
+                                              f"{dt}"))
+                n_table += 1
     phase(3, "kernels", f"fold_delta vs plain version, bit for bit: {n} "
           f"cases (rank 4: BERT-tiny's 10 leaves, 11,112 values; rank 3; a "
           f"misaligned buffer; f32 and bf16 adapters; server_lr 0, 1, 0.37) "
-          f"and one in place, one launch per call; max |err| {err:.1e} "
-          f"(tolerance: equal bits)")
+          f"and one in place, all one flat range; {n_table} in the table "
+          f"form (a delta with gaps: BERT-tiny's 10 leaves and 120 others; "
+          f"f32 and bf16, new buffer and in place); one launch per call; "
+          f"max |err| {err:.1e} (tolerance: equal bits)")
     x = _tied_delta(7)
     got_v, got_i = wc.topk_select(x.to(dev), 409)
     want_v, want_i = wc.topk_select(x, 409)
@@ -1155,7 +1208,11 @@ def fold_timing_phase(dev, card):
     a, d, a_flat, d_flat = _adapter_tree(4, torch.float32, dev, gen)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     lib = torch.add(a_flat, d_flat, alpha=1.0)
+    flat = epilogue.FOLD_FORMS["flat"]
     got = epilogue.fold_delta(a, d, 1.0)
+    check(epilogue.FOLD_FORMS["flat"] == flat + 1,
+          f"fold_delta at the fed-LLM shape took {epilogue.FOLD_FORMS}, not "
+          f"the flat form")
     lib_err = _same_bits(lib, torch.cat([t.reshape(-1) for t in
                                          tree_leaves(got)]),
                          "torch.add(a, d, alpha=1) vs the fold")
@@ -1185,7 +1242,8 @@ def fold_timing_phase(dev, card):
     bound_ms, bound_by = _bound(nbytes, 2 * n, card)
     ms = statistics.median([k1, k2])
     phase(4, "timing", f"fold_delta at BERT-tiny's rank-4 adapters ({n} "
-          f"f32 values, {len(tree_leaves(a))} leaves, one launch), cold L2, "
+          f"f32 values, {len(tree_leaves(a))} leaves, one launch, one flat "
+          f"range), cold L2, "
           f"a GPU sleep ahead of each call, median of 50: kernel {k1:.4f} / "
           f"{k2:.4f} ms, plain (4 ops a leaf) {p1:.4f} / {p2:.4f} ms, "
           f"library torch.add(a, d, alpha=1) {lib_ms:.4f} ms (vs the kernel "
@@ -1758,7 +1816,9 @@ def fed_llm_phase(n):
     inside one call), each through ``init → device → data → model →
     FedMLRunner(...).run()`` with the launch counts set to 0 just before
     and read just after.  Per round the protocol implies, with N silos: one
-    fold and one weighted reduce (the deltas' ``[N, 11,112]`` stack), the
+    fold, in the flat-range form (the adapters, the delta and the result
+    each one buffer in flatten order: the kernel reads no segment table),
+    and one weighted reduce (the deltas' ``[N, 11,112]`` stack), the
     flash kernel once per layer of every eval batch (training at dropout
     0.1 takes the plain attention), and on the int8 wire N + 1 quantize and
     3N + 1 dequantize.  The eval's seconds are the server's
@@ -1819,7 +1879,8 @@ def fed_llm_phase(n):
             server.aggregator.get_global_model_params())),
             f"{codec}: non-finite global adapters")
         n_eval = -(-len(dataset[3][1]) // int(args.batch_size))
-        want = {"fold_delta": ROUNDS, "weighted_reduce": ROUNDS,
+        want = {"fold_delta": ROUNDS, "fold_delta.flat": ROUNDS,
+                "weighted_reduce": ROUNDS,
                 "flash_attention": 2 * n_eval * ROUNDS,
                 "wire_compression.quantize":
                     ROUNDS * (LLM_SILOS + 1) if wire else 0,
@@ -2120,26 +2181,13 @@ def _grouped_layout(x, w, g, stride):
     return xg, wg, gg
 
 
-def _client_layout(x, w, g, stride):
-    """The per-client loop's operands, laid out and padded outside any
-    timed call: lists of K padded NCHW (channels-last) inputs, OIHW
-    weights and NCHW cotangents."""
-    xg, wg, gg = _grouped_layout(x, w, g, stride)
-    k = x.shape[0]
-    return ([t.contiguous(memory_format=torch.channels_last)
-             for t in xg.chunk(k, dim=1)], list(wg.chunk(k, dim=0)),
-            [t.contiguous(memory_format=torch.channels_last)
-             for t in gg.chunk(k, dim=1)])
-
-
 def mc_timing_phase(dev, card):
     """Kernels B13 and B14 at ResNet-56's eight shapes, bfloat16, K 10,
-    B 32, cold L2, median of 50, a GPU sleep ahead of each call (the loop
-    of 10 library calls outlasts the cache flush on the host): the kernel
-    twice, its plain version twice, one grouped library call
-    (``F.conv2d(groups=K)`` or ``torch.nn.grad.conv2d_weight(groups=K)``)
-    and the per-client loop of 10 library calls (the JAX ``impl="xla"``
-    arm), both on operands laid out and padded outside the timed call."""
+    B 32, cold L2, median of 50, a GPU sleep ahead of each call: the
+    kernel twice, its plain version twice and one grouped library call
+    (``F.conv2d(groups=K)`` or ``torch.nn.grad.conv2d_weight(groups=K)``,
+    what the library arm ``impl="library"`` calls) on operands laid out
+    and padded outside the timed call."""
     gen = torch.Generator().manual_seed(12)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     rows, table = {}, []
@@ -2148,59 +2196,50 @@ def mc_timing_phase(dev, card):
         x, w, g = _mc_tensors(_mc_shape_case(h, ci, co, k, s),
                               torch.bfloat16, gen, dev)
         xg, wg, gg = _grouped_layout(x, w, g, stride)
-        xs, ws, gs = _client_layout(x, w, g, stride)
         fns = {
             "fwd": dict(
                 kernel=lambda: mcc.mc_conv_fwd(x, w, stride),
                 plain=lambda: mcc.mc_conv_fwd_reference(x, w, stride),
                 grouped=lambda: F.conv2d(xg, wg, stride=stride,
-                                         groups=MC_K),
-                loop=lambda: [F.conv2d(a, b_, stride=stride)
-                              for a, b_ in zip(xs, ws)]),
+                                         groups=MC_K)),
             "wgrad": dict(
                 kernel=lambda: mcc.mc_conv_wgrad(x, g, k, k, stride),
                 plain=lambda: mcc.mc_conv_wgrad_reference(x, g, k, k,
                                                           stride),
                 grouped=lambda: torch.nn.grad.conv2d_weight(
-                    xg, wg.shape, gg, stride=stride, groups=MC_K),
-                loop=lambda: [torch.nn.grad.conv2d_weight(
-                    a, b_.shape, c, stride=stride)
-                    for a, b_, c in zip(xs, ws, gs)]),
+                    xg, wg.shape, gg, stride=stride, groups=MC_K)),
         }
         for kind, fn in fns.items():
             p1 = _time_ms(fn["plain"], flush, hide=True)
             k1 = _time_ms(fn["kernel"], flush, hide=True)
             lib = _time_ms(fn["grouped"], flush, hide=True)
-            loop = _time_ms(fn["loop"], flush, hide=True)
             k2 = _time_ms(fn["kernel"], flush, hide=True)
             p2 = _time_ms(fn["plain"], flush, hide=True)
             nbytes, flops = mc_work(h, ci, co, k, s, kind)
             bound_ms, bound_by = _bound(nbytes, flops, card, peak="bf16")
             ms = statistics.median([k1, k2])
             row = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
-                       library_ms=lib, loop_ms=loop, bound_ms=bound_ms,
+                       library_ms=lib, bound_ms=bound_ms,
                        bound_by=bound_by)
             rows[(name, kind)] = row
             table.append((name, kind, count, row))
             phase(4, "timing", f"mc_conv.{kind} at {name}, K {MC_K}, B "
                   f"{MC_B}, bf16, cold L2, median of 50: kernel {k1:.4f} / "
                   f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, grouped "
-                  f"library call {lib:.4f} ms, per-client loop of {MC_K} "
-                  f"{loop:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+                  f"library call {lib:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP at "
                   f"{card_peaks(card)[2] / 1e12:.0f} TFLOP/s dense bf16) -> "
-                  f"{bound_ms / ms:.1%} of the bound; kernel / loop "
-                  f"{ms / loop:.2f}x")
+                  f"{bound_ms / ms:.1%} of the bound; kernel / grouped "
+                  f"{ms / lib:.2f}x")
     for kind in ("fwd", "wgrad"):
         tot = {key: sum(r[key] * c for n, kd, c, r in table if kd == kind)
-               for key in ("ms", "library_ms", "loop_ms", "bound_ms")}
+               for key in ("ms", "library_ms", "bound_ms")}
         phase(4, "timing", f"mc_conv.{kind} summed over one pass's 57 convs "
               f"(each shape's median times its count): kernel "
               f"{tot['ms']:.3f} ms, grouped library {tot['library_ms']:.3f} "
-              f"ms, per-client loop {tot['loop_ms']:.3f} ms, bound "
-              f"{tot['bound_ms']:.4f} ms")
-    return {f"mc_conv.{kind}": {k_: v for k_, v in rows[(MC_MAIN, kind)]
-                                .items() if k_ != "loop_ms"}
+              f"ms, bound {tot['bound_ms']:.4f} ms")
+    return {f"mc_conv.{kind}": rows[(MC_MAIN, kind)]
             for kind in ("fwd", "wgrad")}
 
 
@@ -2306,11 +2345,11 @@ def mc_main_path_phase(n, card, dev):
     ``conv_for_clients`` (the kernels), the stem's input not requiring a
     gradient; launch counts set to 0 before and read after; the pass
     held to the same pass in float64 (cuDNN, one client at a time): in
-    float32 and in bfloat16, no farther from it than the per-client library
-    loop's (``impl="library"``) pass; then the pass's device time (the
-    events' span, idle gaps included, and the profiler's busy time)
-    against the library loop, the grouped library call (the same network
-    in the [B, K·C, H, W] layout) and the summed bound."""
+    float32 and in bfloat16, no farther from it than the library arm's
+    (``impl="library"``: one grouped ``F.conv2d`` a conv) pass; then the
+    pass's device time (the events' span, idle gaps included, and the
+    profiler's busy time) against the library arm and the summed
+    bound."""
     convs, blocks = resnet56_plan()
     check(len(convs) == 57 and sum(c[3] == 3 and c[4] == 1 for c in convs)
           == 53, f"ResNet-56 plan: {len(convs)} convs")
@@ -2323,7 +2362,7 @@ def mc_main_path_phase(n, card, dev):
     def kernel_conv(a, w, s):
         return mcc.conv_for_clients(a, w, (s, s))
 
-    def loop_conv(a, w, s):
+    def library_conv(a, w, s):
         return mcc.conv_for_clients(a, w, (s, s), impl="library")
 
     def run(conv, dtype):
@@ -2334,72 +2373,53 @@ def mc_main_path_phase(n, card, dev):
     # time.  Rounding compounds over the 56 layers behind a gradient (and
     # flips ReLU masks), so a float32 pass sits about 1e-3 from it and a
     # bfloat16 pass about 1e-1: the kernels' pass, in each dtype, must sit
-    # no farther from it than the per-client library loop's (relative L2 of
-    # y, and of all 57 dw together)
+    # no farther from it than the library arm's (relative L2 of y, and of
+    # all 57 dw together)
     y_64, dw_64 = run(_f64_conv, torch.float64)
 
     def dist(out):
         return _rel(out[0], y_64), _rel(_cat(out[1]), _cat(dw_64))
 
     f32_err = dist(run(kernel_conv, torch.float32))
-    lib_f32_err = dist(run(loop_conv, torch.float32))
+    lib_f32_err = dist(run(library_conv, torch.float32))
     # the main path, bfloat16, counted
     torch.cuda.synchronize()
     reset_launches()
-    mcc.LIBRARY_CALLS["dx"] = 0
+    mcc.LIBRARY_CALLS.update(dx=0, fwd=0)
     y_k, dw_k = run(kernel_conv, torch.bfloat16)
     torch.cuda.synchronize()
     launches = read_launches()
     lib_dx = mcc.LIBRARY_CALLS["dx"]
     check(launches["mc_conv.fwd"] == 57 + 52
-          and launches["mc_conv.wgrad"] == 57 and lib_dx == 4,
+          and launches["mc_conv.wgrad"] == 57 and lib_dx == 4
+          and mcc.LIBRARY_CALLS["fwd"] == 0,
           f"phase {n}: launches fwd {launches['mc_conv.fwd']} (want 109), "
           f"wgrad {launches['mc_conv.wgrad']} (want 57), library dx "
-          f"{lib_dx} (want 4)")
+          f"{lib_dx} (want 4), library forwards "
+          f"{mcc.LIBRARY_CALLS['fwd']} (want 0)")
     check(tuple(y_k.shape) == (MC_K, MC_B, 8, 8, 64)
           and bool(torch.isfinite(y_k.float()).all())
           and all(bool(torch.isfinite(d.float()).all()) for d in dw_k),
           f"phase {n}: non-finite or misshapen pass output")
     bf16_err = dist((y_k, dw_k))
-    lib_err = dist(run(loop_conv, torch.bfloat16))
+    lib_err = dist(run(library_conv, torch.bfloat16))
     for label, got, lib in (("float32", f32_err, lib_f32_err),
                             ("bfloat16", bf16_err, lib_err)):
         check(all(a <= 1.25 * b + 1e-4 for a, b in zip(got, lib)),
               f"phase {n}: {label} pass vs the float64 one, relative L2 of "
-              f"y and of all dw: kernels {got}, library loop {lib}")
-
-    # the grouped library call: the same network in [B, K·C, H, W]
-    def grouped_pass():
-        xg = x32.to(torch.bfloat16).permute(1, 0, 4, 2, 3).reshape(
-            MC_B, MC_K * 3, 32, 32).contiguous(
-            memory_format=torch.channels_last)
-        wgs = [w.to(torch.bfloat16).permute(0, 4, 3, 1, 2).reshape(
-            MC_K * w.shape[4], w.shape[3], w.shape[1], w.shape[2])
-            .requires_grad_(True) for w in w32]
-
-        def conv(a, w, s):
-            k = w.shape[2]
-            _, _, (pt, pb), (pl, pr) = mcc.same_padding(
-                a.shape[2], a.shape[3], k, k, (s, s))
-            return F.conv2d(F.pad(a, (pl, pr, pt, pb)), w, stride=s,
-                            groups=MC_K)
-
-        pg = probe.permute(1, 0, 4, 2, 3).reshape(MC_B, MC_K * 64, 8, 8)
-        return resnet56_pass(xg, wgs, conv, convs, blocks, pg)
+              f"y and of all dw: kernels {got}, library arm {lib}")
 
     def kernel_pass():
         return run(kernel_conv, torch.bfloat16)
 
-    def loop_pass():
-        return run(loop_conv, torch.bfloat16)
+    def library_pass():
+        return run(library_conv, torch.bfloat16)
 
     k1 = _time_pass(kernel_pass)
-    lp = _time_pass(loop_pass)
-    gp = _time_pass(grouped_pass)
+    lp = _time_pass(library_pass)
     k2 = _time_pass(kernel_pass)
     kb, kb_ours = _busy_ms(kernel_pass)
-    lb, _ = _busy_ms(loop_pass)
-    gb, _ = _busy_ms(grouped_pass)
+    lb, _ = _busy_ms(library_pass)
     bound = 0.0
     for i, (h, ci, co, k, s) in enumerate(convs):
         kinds = ["fwd", "wgrad"] + (["dx"] if i else [])
@@ -2415,24 +2435,21 @@ def mc_main_path_phase(n, card, dev):
           f"mc_conv.wgrad {launches['mc_conv.wgrad']}, library dx {lib_dx}; "
           f"relative L2 to the float64 pass (cuDNN, one client at a time), "
           f"y / all dw: f32 kernels {f32_err[0]:.2e} / {f32_err[1]:.2e}, "
-          f"f32 library loop {lib_f32_err[0]:.2e} / {lib_f32_err[1]:.2e}, "
+          f"f32 library arm {lib_f32_err[0]:.2e} / {lib_f32_err[1]:.2e}, "
           f"bf16 kernels {bf16_err[0]:.2e} / {bf16_err[1]:.2e}, bf16 "
-          f"library loop {lib_err[0]:.2e} / {lib_err[1]:.2e}")
+          f"library arm {lib_err[0]:.2e} / {lib_err[1]:.2e}")
     phase(n, "main path", f"one pass, device clock from its first launch "
           f"to its last (median of 10; idle gaps included) / host wall: "
           f"kernels {k1[0]:.3f} / {k1[1]:.3f} and {k2[0]:.3f} / "
-          f"{k2[1]:.3f} ms, per-client library loop {lp[0]:.3f} / "
-          f"{lp[1]:.3f} ms, grouped library call {gp[0]:.3f} / {gp[1]:.3f} "
-          f"ms -> kernels / loop {ms / lp[0]:.2f}x, kernels / grouped "
-          f"{ms / gp[0]:.2f}x")
+          f"{k2[1]:.3f} ms, library arm (one grouped F.conv2d a conv) "
+          f"{lp[0]:.3f} / {lp[1]:.3f} ms -> kernels / library arm "
+          f"{ms / lp[0]:.2f}x")
     phase(n, "main path", f"one pass, device busy (summed kernel times, "
           f"torch.profiler): kernels {kb:.3f} ms (mc_conv kernels "
-          f"{kb_ours:.3f}), per-client library loop {lb:.3f} ms, grouped "
-          f"library call {gb:.3f} ms; summed bound of the pass's 57 "
-          f"forwards, 56 dx and 57 dw {bound:.4f} ms -> kernels "
-          f"{bound / kb:.2%}, loop {bound / lb:.2%}, grouped "
-          f"{bound / gb:.2%} of it; kernels / loop {kb / lb:.2f}x, kernels "
-          f"/ grouped {kb / gb:.2f}x")
+          f"{kb_ours:.3f}), library arm {lb:.3f} ms; summed bound of the "
+          f"pass's 57 forwards, 56 dx and 57 dw {bound:.4f} ms -> kernels "
+          f"{bound / kb:.2%}, library arm {bound / lb:.2%} of it; kernels / "
+          f"library arm {kb / lb:.2f}x")
     return launches
 
 

@@ -21,14 +21,16 @@
 // needs no copy (every row must start 16-byte aligned: the wrapper copies a
 // tensor whose rows do not).
 //
-// What bounds it on this card: at the language model's shapes (D = 64,
-// T = 80 or 512, bfloat16, causal) the bytes it must move (q, k, v read
-// once, o, l, m written once: 2.7 and 4.3 MB) take about a microsecond at
-// 3.35 TB/s and its products a twentieth of that on the tensor cores, less
-// than a launch.  So the kernel is bound by latency: the launch, one round
-// trip to device memory, and the chain of products, exponentials and
-// shuffles that the longest block walks, one key tile after another (8
-// tiles of 64 keys for the last query rows at T = 512, 1 or 2 at T = 80).
+// What bounds it on this card: at the language models' shapes (D = 64,
+// causal; T = 80 or 512 in bfloat16, T = 32 in float32) the bytes it must
+// move (q, k, v read once, o, l, m written once: 2.7, 4.3 and 0.26 MB)
+// take about a microsecond or less at 3.35 TB/s and its products a
+// twentieth of that on the tensor cores (float32: 1.1 MFLOP, 0.02 us on
+// the CUDA cores), less than a launch.  So the kernel is bound by
+// latency: the launch, one round trip to device memory, and the chain of
+// products, exponentials and shuffles that the longest block walks, one
+// key tile after another (8 tiles of 64 keys for the last query rows at
+// T = 512, 1 or 2 at T = 80, one at T = 32).
 // The design shortens that chain and fills the card:
 //
 //  * bfloat16 (flash_fwd_mma_kernel): both products on the tensor cores,
@@ -65,11 +67,28 @@
 //    Only the diagonal tile and the tile holding t_valid take the masked
 //    path (mma_tile<D, true>), which also skips the n8 pairs wholly above
 //    a warp's rows; every other tile runs without masks or guards.
-//  * float32 (flash_fwd_kernel): both products with float32 FMAs from
-//    shared memory (the tensor cores would round to TF32); 128 threads,
-//    thread (r, c) = (tid / 8, tid % 8) owns query rows 4r..4r+3, keys
-//    c + 8j of each tile and output columns c + 8j, and the 8 threads of a
-//    row group meet by warp shuffles; p goes through shared memory.
+//  * float32 (flash_fwd_kernel): both products with float32 FMAs (the
+//    tensor cores would round to TF32), sized for the fed-LLM plane's
+//    short sequences ([4 * 2, 32, 64] at its eval: 8 (b, h) pairs).  A
+//    block owns 16 query rows (4 warps of 4 rows: 16 blocks at T = 32,
+//    where 64-row blocks made 8 on 132 SMs, half their rows padding), and
+//    8 lanes share a row: lane c computes the scores of keys c + 8j, each
+//    one fmaf chain over d = 0 .. D-1 in order from q (scaled as it
+//    lands) and k rows in shared memory, as the plain version's float32
+//    product sums them (a split of d over the lanes summed by shuffles,
+//    though more accurate, strays from its bits by more than the
+//    tolerance at scores of 200); the row's max and sum meet by three
+//    xor shuffles; p v takes key 8j + src's p from lane src by a shuffle
+//    (no trip through shared memory, no barrier), and lane c owns o's
+//    columns (c + 8i) * 4.  q, k and v go straight into shared memory by
+//    16-byte cp.async copies, one 64-key tile ahead while the last is
+//    used, and only the keys the block can see: the tile is as long as
+//    the sequence up to 64 keys (one group of copies at T = 32), and each
+//    warp walks its keys in groups of 8 up to its last row's causal
+//    diagonal or t_valid (16 or 32 keys at T = 32, not 64).  One barrier
+//    a tile, and one more before a stage is refilled.  The 64-key tiles,
+//    the sums and their order are the first version's, and the masked
+//    keys it skips added only zeros there, so o, l and m keep its bits.
 //
 // What the design does about the TPU kernel's shape: the Pallas grid runs
 // (BH, q tile, k tile) in order on one core and carries the accumulators in
@@ -104,260 +123,331 @@ struct Args {
   long long qs[3], ks[3], vs[3], os[3];   // (b, h, t) strides, in elements
 };
 
+// ------------------------------------------------- cp.async, both kernels
+// Shared memory is addressed by 32-bit offsets computed once, so the loop
+// does not convert generic pointers again and again.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+// (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+// all but the last committed group have landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
 // ------------------------------------------------- float32: fmaf kernel
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;                 // query rows of a block
-constexpr int kBK = 64;                 // keys of a tile
-constexpr int kColGroups = 8;           // threads sharing one row group
-constexpr int kRows = kBQ / (kThreads / kColGroups);   // 4 rows a thread
-constexpr int kKeys = kBK / kColGroups;                // 8 keys a thread
-constexpr int kLdP = kBK + 1;
+constexpr int kRowLanes = 8;                       // lanes sharing one row
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kWarpRows = 32 / kRowLanes;          // 4 query rows a warp
+constexpr int kF32BQ = kWarpRows * kF32Warps;      // 16 query rows a block
+constexpr int kF32BK = 64;                         // keys of a tile
+constexpr int kKeysPerLane = kF32BK / kRowLanes;   // lane c: keys c + 8j
 
 // max and sum over the 8 lanes of a row group (lanes 8g .. 8g + 7)
 __device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int off = 1; off < kColGroups; off <<= 1) {
+  for (int off = 1; off < kRowLanes; off <<= 1) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
   return v;
 }
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int off = 1; off < kColGroups; off <<= 1) {
+  for (int off = 1; off < kRowLanes; off <<= 1) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   }
   return v;
 }
 
-// One tile of ROWS rows of a float32 [T, D] slab (row stride ld elements,
-// every row 16-byte aligned) on its way to shared memory, in groups of at
-// most 8 16-byte loads a thread (32 registers): fetch(g) issues group g's
-// loads before any is used, so a thread waits for the memory once per
-// group, not once per element; store(g) scales and writes them to rows of
-// stride lds floats.  Rows at or past n read as zeros.
-template <int D, int ROWS>
-struct Tile {
-  static constexpr int kPer = 4;
-  static constexpr int kChunksPerRow = D / kPer;
-  static constexpr int kIters = ROWS * kChunksPerRow / kThreads;
-  static constexpr int kGroup = kIters < 8 ? kIters : 8;
-  static constexpr int kGroups = kIters / kGroup;
-  static_assert(ROWS * kChunksPerRow % kThreads == 0, "ragged tile");
-  static_assert(kIters % kGroup == 0, "ragged group");
-  float4 buf[kGroup];
+// floats of a shared-memory row of q, k or v: 16 bytes of padding put the
+// 8 rows that a row group's lanes read at once (keys c + 8j) in distinct
+// banks (row strides of 5, 9, 17 and 33 chunks of 16 bytes)
+template <int D>
+__host__ __device__ constexpr int f32_ld() {
+  return D + 4;
+}
 
-  __device__ __forceinline__ static int row_of(int it) {
-    return (threadIdx.x + it * kThreads) / kChunksPerRow;
-  }
-  __device__ __forceinline__ static int col_of(int it) {
-    return (threadIdx.x + it * kThreads) % kChunksPerRow * kPer;
-  }
+// Lane c's output columns of a D-wide row: kPieces pieces of kW floats,
+// piece i at column (c + 8 i) kW, so the 8 lanes of a row group read 8 kW
+// neighbouring floats a piece (no bank conflict; the 4 groups of a warp
+// read the same v row at once: a broadcast).
+template <int D>
+struct Slice {
+  static constexpr int kW = D >= 32 ? 4 : 2;
+  static constexpr int kPieces = D / (kW * kRowLanes);
+  static constexpr int kN = kW * kPieces;          // D / 8 floats a lane
+  static_assert(kPieces >= 1 && D % (kW * kRowLanes) == 0, "head dim");
 
-  __device__ __forceinline__ void fetch(const float* src, long long ld,
-                                        int t0, int n, int g) {
+  __device__ __forceinline__ static void load(const float* row, int c,
+                                              float (&x)[kN]) {
 #pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      const int it = g * kGroup + i, t = t0 + row_of(it);
-      if (t < n) {
-        buf[i] = *reinterpret_cast<const float4*>(src + t * ld + col_of(it));
+    for (int i = 0; i < kPieces; ++i) {
+      const float* p = row + (c + kRowLanes * i) * kW;
+      if constexpr (kW == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        x[4 * i] = v.x;
+        x[4 * i + 1] = v.y;
+        x[4 * i + 2] = v.z;
+        x[4 * i + 3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        x[2 * i] = v.x;
+        x[2 * i + 1] = v.y;
       }
     }
   }
 
-  __device__ __forceinline__ void store(float* dst, int lds, float scale,
-                                        int t0, int n, int g) const {
+  __device__ __forceinline__ static void store(float* row, int c,
+                                               const float (&x)[kN]) {
 #pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      const int it = g * kGroup + i, row = row_of(it);
-      const bool ok = t0 + row < n;
-      float* d = dst + row * lds + col_of(it);
-      d[0] = ok ? buf[i].x * scale : 0.0f;
-      d[1] = ok ? buf[i].y * scale : 0.0f;
-      d[2] = ok ? buf[i].z * scale : 0.0f;
-      d[3] = ok ? buf[i].w * scale : 0.0f;
-    }
-  }
-
-  // the whole tile, group after group
-  __device__ __forceinline__ void load(const float* src, long long ld,
-                                       int t0, int n, float* dst, int lds,
-                                       float scale) {
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      fetch(src, ld, t0, n, g);
-      store(dst, lds, scale, t0, n, g);
+    for (int i = 0; i < kPieces; ++i) {
+      float* p = row + (c + kRowLanes * i) * kW;
+      if constexpr (kW == 4) {
+        *reinterpret_cast<float4*>(p) =
+            make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+      } else {
+        *reinterpret_cast<float2*>(p) = make_float2(x[2 * i], x[2 * i + 1]);
+      }
     }
   }
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kLdP);
+// s[j] = q_row . k_row(c + 8j) for the first NJ of the lane's keys: one
+// fmaf chain a key over d = 0 .. D-1 in order, as the products of the
+// plain version's float32 matrix product are summed; q (already scaled)
+// and k read as float4 from shared memory
+template <int D, int NJ>
+__device__ __forceinline__ void scores(const float* qrow, const float* krow,
+                                       float (&s)[kKeysPerLane]) {
+  constexpr int kLd = f32_ld<D>();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(
+          krow + j * kRowLanes * kLd + d);
+      s[j] = fmaf(qv.x, kv.x, s[j]);
+      s[j] = fmaf(qv.y, kv.y, s[j]);
+      s[j] = fmaf(qv.z, kv.z, s[j]);
+      s[j] = fmaf(qv.w, kv.w, s[j]);
+    }
+  }
 }
 
-// s = (q * scale) k^T: q is scaled as it is staged, as the TPU kernel does
+// rows of a shared-memory key tile: the keys a block can see, in whole
+// groups of 8, up to a full tile (T = 32 takes 32 rows, not 64)
+__host__ __device__ inline int f32_tile_rows(int kv_max) {
+  const int r = (kv_max + kRowLanes - 1) / kRowLanes * kRowLanes;
+  return r < kF32BK ? (r < kRowLanes ? kRowLanes : r) : kF32BK;
+}
+
+// keys any block of the launch can see: below kv_end and, when causal, at
+// or below the last query row
+__host__ __device__ inline int f32_kv_max(int causal, int kv_end, int T) {
+  return causal ? (kv_end < T ? kv_end : T) : kv_end;
+}
+
+// s = (q * scale) k^T: q is scaled as it lands, as the TPU kernel does
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int kLd = D + 1;
-  constexpr int kCols = D / kColGroups;   // output columns a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [kBQ][kLd], scaled q
-  float* Ks = Qs + kBQ * kLd;             // [kBK][kLd]
-  float* Vs = Ks + kBK * kLd;             // [kBK][D]
-  float* Ps = Vs + kBK * D;               // [kBQ][kLdP], the tile's p
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel(Args a) {
+  using S = Slice<D>;
+  constexpr int kLd = f32_ld<D>();
+  constexpr int kRowPieces = D / 4;          // 16-byte pieces of a row
+  extern __shared__ __align__(16) float f32_smem[];
+  // q [kF32BQ][kLd], then one or two stages of a k tile and a v tile
+  const int tile_rows = f32_tile_rows(f32_kv_max(a.causal, a.kv_end, a.T));
+  const int tile = tile_rows * kLd;
+  float* Qs = f32_smem;
 
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int row0 = (tid / kColGroups) * kRows;
-  const int c = tid % kColGroups;
+  // causal blocks with the most key tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = lane % kRowLanes;
+  const int r_blk = warp * kWarpRows + lane / kRowLanes;   // row in block
+  const int w0 = q0 + warp * kWarpRows;
+  const int qp = q0 + r_blk;                 // this lane's query row
+  const bool warp_live = w0 < a.T;
+
+  // keys the block loads, keys the warp's rows may see, keys this row sees
+  const int q_last = min(q0 + kF32BQ, a.T) - 1;
+  const int kv_lim = a.causal ? min(a.kv_end, q_last + 1) : a.kv_end;
+  const int n_tiles = (kv_lim + tile_rows - 1) / tile_rows;
+  const int warp_hi =
+      a.causal ? min(a.kv_end, min(w0 + kWarpRows, a.T)) : a.kv_end;
+  const int row_hi = a.causal ? min(a.kv_end, qp + 1) : a.kv_end;
 
   const float* q = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[1];
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + h * a.ks[1];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + h * a.vs[1];
   float* o = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1];
 
-  // the q tile, times the scale (rows past T are zeros)
-  Tile<D, kBQ>().load(q, a.qs[2], q0, a.T, Qs, kLd, a.scale);
-
-  float acc[kRows][kCols];
-  float m_run[kRows], l_run[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
+  // key tile t into stage t % 2 by 16-byte cp.async copies straight into
+  // shared memory: its rows below kv_lim, then zeros up to the next whole
+  // group of 8 keys (a warp runs whole groups)
+  const long long k_ld = a.ks[2], v_ld = a.vs[2];
+  const uint32_t stage0 = smem_u32(Qs + kF32BQ * kLd);
+  auto issue = [=](int t) {
+    const int k0 = t * tile_rows;
+    const int real = min(tile_rows, kv_lim - k0);
+    const int rows = min(tile_rows, (real + kRowLanes - 1) / kRowLanes *
+                                        kRowLanes);
+    const uint32_t ks = stage0 + sizeof(float) * (t & 1) * 2 * tile;
+    const uint32_t vs = ks + sizeof(float) * tile;
+    for (int i = tid; i < rows * kRowPieces; i += kF32Threads) {
+      const int r = i / kRowPieces, p = i % kRowPieces;
+      const bool ok = r < real;
+      const long long t_ = ok ? k0 + r : 0;
+      const uint32_t off = sizeof(float) * (r * kLd + p * 4);
+      cp_async16(ks + off, k + t_ * k_ld + p * 4, ok);
+      cp_async16(vs + off, v + t_ * v_ld + p * 4, ok);
+    }
+  };
+  // the block's q rows (zeros past T) in the same group as tile 0
+  const uint32_t qs_u = smem_u32(Qs);
+  const long long q_ld = a.qs[2];
+  if (n_tiles > 0) {
+    for (int i = tid; i < kF32BQ * kRowPieces; i += kF32Threads) {
+      const int r = i / kRowPieces, p = i % kRowPieces;
+      const bool ok = q0 + r < a.T;
+      cp_async16(qs_u + sizeof(float) * (r * kLd + p * 4),
+                 q + (ok ? q0 + r : 0) * q_ld + p * 4, ok);
+    }
+    issue(0);
+    cp_async_commit();
   }
 
-  // live key tiles: those holding a key below kv_end and, when causal, at
-  // or below the tile's last query row
-  const int q_last = min(q0 + kBQ, a.T) - 1;
-  int n_tiles = (a.kv_end + kBK - 1) / kBK;
-  if (a.causal) n_tiles = min(n_tiles, q_last / kBK + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    {
-      // the tile's first group of k (and all of v, where each fits in one
-      // group with rows of up to 128 bytes) loads while the last tile's
-      // P·V finishes
-      using KV = Tile<D, kBK>;
-      constexpr bool kBoth = sizeof(float) * D <= 128;
-      static_assert(!kBoth || KV::kGroups == 1, "v must fit in one group");
-      KV ktile, vtile;
-      ktile.fetch(k, a.ks[2], k0, a.Tk, 0);
-      if constexpr (kBoth) vtile.fetch(v, a.vs[2], k0, a.Tk, 0);
-      __syncthreads();        // the last tile's P·V is done with Ks, Vs, Ps
-      ktile.store(Ks, kLd, 1.0f, k0, a.Tk, 0);
+  float acc[S::kN];
 #pragma unroll
-      for (int g = 1; g < KV::kGroups; ++g) {
-        ktile.fetch(k, a.ks[2], k0, a.Tk, g);
-        ktile.store(Ks, kLd, 1.0f, k0, a.Tk, g);
-      }
-      if constexpr (kBoth) {
-        vtile.store(Vs, D, 1.0f, k0, a.Tk, 0);
-      } else {
-        vtile.load(v, a.vs[2], k0, a.Tk, Vs, D, 1.0f);
+  for (int e = 0; e < S::kN; ++e) acc[e] = 0.0f;
+  float m_run = kNegInf, l_run = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      issue(t + 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    if (t == 0) {
+      // each thread scales the q pieces it copied itself
+      for (int i = tid; i < kF32BQ * kRowPieces; i += kF32Threads) {
+        float* p = Qs + (i / kRowPieces) * kLd + (i % kRowPieces) * 4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] *= a.scale;
       }
     }
     __syncthreads();
-
-    // s = (q scale) k^T for rows row0 + i and keys c + 8j
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(row0 + i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        kv[j] = Ks[(c + kColGroups * j) * kLd + d];
+    const int k0 = t * tile_rows;
+    const int lim = warp_live ? min(tile_rows, warp_hi - k0) : 0;
+    if (lim > 0) {
+      const float* ks = Qs + kF32BQ * kLd + (t & 1) * 2 * tile;
+      const float* vs = ks + tile;
+      const int nj = (lim + kRowLanes - 1) / kRowLanes;
+      // s for keys c + 8j, each lane a chain over d a key
+      float s[kKeysPerLane];
+      const float* qrow = Qs + r_blk * kLd;
+      const float* krow = ks + c * kLd;
+      switch (nj) {
+        case 1: scores<D, 1>(qrow, krow, s); break;
+        case 2: scores<D, 2>(qrow, krow, s); break;
+        case 3: scores<D, 3>(qrow, krow, s); break;
+        case 4: scores<D, 4>(qrow, krow, s); break;
+        case 5: scores<D, 5>(qrow, krow, s); break;
+        case 6: scores<D, 6>(qrow, krow, s); break;
+        case 7: scores<D, 7>(qrow, krow, s); break;
+        default: scores<D, 8>(qrow, krow, s); break;
       }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
-    // mask, then the online-softmax step of each row
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qp = q0 + row0 + i;
-      bool ok[kKeys];
+      // mask, then the online-softmax step of each row
+      bool ok[kKeysPerLane];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int kp = k0 + c + kColGroups * j;
-        ok[j] = kp < a.kv_end && (!a.causal || qp >= kp);
-        if (!ok[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < kKeysPerLane; ++j) {
+        if (j < nj) {
+          ok[j] = k0 + c + kRowLanes * j < row_hi;
+          if (!ok[j]) s[j] = kNegInf;
+          mx = fmaxf(mx, s[j]);
+        }
       }
-      const float new_m = fmaxf(m_run[i], group_max(mx));
+      const float new_m = fmaxf(m_run, group_max(mx));
       float psum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - new_m) : 0.0f;
-        psum += p;
-        Ps[(row0 + i) * kLdP + c + kColGroups * j] = p;
+      for (int j = 0; j < kKeysPerLane; ++j) {
+        if (j < nj) {
+          s[j] = ok[j] ? expf(s[j] - new_m) : 0.0f;
+          psum += s[j];
+        }
       }
-      const float alpha = expf(m_run[i] - new_m);
-      l_run[i] = l_run[i] * alpha + group_sum(psum);
+      const float alpha = expf(m_run - new_m);
+      l_run = l_run * alpha + group_sum(psum);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-      m_run[i] = new_m;
-    }
-    __syncthreads();
-
-    // o += p v for columns c + 8j
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows];
+      for (int e = 0; e < S::kN; ++e) acc[e] *= alpha;
+      m_run = new_m;
+      // o += p v on the lane's columns, keys in order: key 8j + src's p
+      // comes from lane src of the row group
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(row0 + i) * kLdP + kk];
+      for (int j = 0; j < kKeysPerLane; ++j) {
+        if (j < nj) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float vv = Vs[kk * D + c + kColGroups * j];
+          for (int src = 0; src < kRowLanes; ++src) {
+            const float p = __shfl_sync(0xffffffffu, s[j], src, kRowLanes);
+            float vx[S::kN];
+            S::load(vs + (kRowLanes * j + src) * kLd, c, vx);
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+            for (int e = 0; e < S::kN; ++e) acc[e] = fmaf(p, vx[e], acc[e]);
+          }
+        }
       }
     }
+    if (t + 1 < n_tiles) __syncthreads();   // the stage is free again
   }
 
+  if (qp >= a.T) return;
+  const float denom = fmaxf(l_run, 1e-12f);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + row0 + i;
-    if (qp >= a.T) continue;
-    const float denom = fmaxf(l_run[i], 1e-12f);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      o[qp * a.os[2] + c + kColGroups * j] = acc[i][j] / denom;
-    }
-    if (c == 0) {
-      a.l[static_cast<long long>(bh) * a.T + qp] = l_run[i];
-      a.m[static_cast<long long>(bh) * a.T + qp] = m_run[i];
-    }
+  for (int e = 0; e < S::kN; ++e) acc[e] = acc[e] / denom;
+  S::store(o + qp * a.os[2], c, acc);
+  if (c == 0) {
+    a.l[static_cast<long long>(bh) * a.T + qp] = l_run;
+    a.m[static_cast<long long>(bh) * a.T + qp] = m_run;
   }
 }
 
 template <int D>
 int launch(const Args& a, int bh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  // above 48 KB a block gets dynamic shared memory only after opting in
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (a.T + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+  // q, and two stages where a block walks more than one key tile
+  const int kv_max = f32_kv_max(a.causal, a.kv_end, a.T);
+  const int rows = f32_tile_rows(kv_max);
+  const size_t smem = sizeof(float) * f32_ld<D>() *
+                      (kF32BQ + (kv_max > rows ? 4 : 2) * rows);
+  if (smem > 48 * 1024) {
+    // above 48 KB a block gets dynamic shared memory only after opting in
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(bh, (a.T + kF32BQ - 1) / kF32BQ);
+  flash_fwd_kernel<D><<<grid, kF32Threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,26 +483,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shared memory is addressed by 32-bit offsets computed once, so the loop
-// does not convert generic pointers again and again.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-// (src-size 0: nothing is read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // the threads of warp group `group` meet (barrier 0 is __syncthreads)
@@ -839,7 +909,10 @@ bool rows_aligned16(const Args& a) {
 }
 
 int launch_f32(const Args& a, int bh, int D, cudaStream_t stream) {
-  if (!rows_aligned16<float>(a) || (a.T + kBQ - 1) / kBQ > 65535) {
+  // o is written by 16-byte stores too (8-byte ones at D = 16)
+  if (!rows_aligned16<float>(a) || reinterpret_cast<uintptr_t>(a.o) % 16 ||
+      a.os[0] % 4 || a.os[1] % 4 || a.os[2] % 4 ||
+      (a.T + kF32BQ - 1) / kF32BQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (D) {

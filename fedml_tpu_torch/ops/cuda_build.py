@@ -18,7 +18,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -88,3 +88,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def load_variant(name: str, src: str, like: ctypes.CDLL,
+                 fns: Iterable[str]) -> ctypes.CDLL:
+    """Another copy of a kernel source with the same C interface (an
+    earlier commit's, or one with other tile sizes), compiled with these
+    flags and ``csrc``'s headers into ``csrc/build/lib<name>.so`` and its
+    functions ``fns`` bound with the argument and result types they have
+    in ``like``, the port's own bound build.  For profiling scripts that
+    time builds in turns; the port itself loads only through ``load``."""
+    out = BUILD_DIR / f"lib{name}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                           str(out), src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    for fn in fns:
+        ours, theirs = getattr(like, fn), getattr(lib, fn)
+        theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
+    return lib

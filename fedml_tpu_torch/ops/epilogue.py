@@ -10,8 +10,8 @@ Port of ``fedml_tpu/ops/epilogue.py``:
   ``_momentum_kernel`` and ``_adam_kernel`` — one kernel template over the
   four channels, ``csrc/fused_epilogue.cu``;
 * ``fold_delta`` and its Pallas ``_delta_kernel``, the fed-LLM adapter
-  fold — ``csrc/fold_delta.cu``, one launch per adapter dtype over a table
-  of the leaves.
+  fold — ``csrc/fold_delta.cu``, one launch per adapter dtype over all its
+  leaves, in the launch form ``fold_plan`` picks.
 
 Both are CUDA C++ for ``sm_90a``, built and bound by ``ops/cuda_build.py``;
 each source's note says what bounds it and how the design answers that.
@@ -48,6 +48,7 @@ is one ``fused_epilogue`` over the parameter columns and one
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -61,6 +62,9 @@ _OPT_CODES = {"none": 0, "sgd": 1, "momentum": 2, "adam": 3}
 #: launches it: ``fused_epilogue`` by optimizer channel
 LAUNCHES = {"weighted_reduce": 0, "fold_delta": 0,
             **{f"fused_epilogue.{opt}": 0 for opt in _OPT_CODES}}
+#: the fold's launches by launch form (``fold_plan``), counted beside
+#: ``LAUNCHES["fold_delta"]``
+FOLD_FORMS = {"flat": 0, "table": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -131,17 +135,20 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         lib.fedml_weighted_reduce_max_clients.argtypes = []
         lib.fedml_weighted_reduce_max_clients.restype = i
     elif name == "fold_delta":
-        lib.fedml_fold_delta.argtypes = [vp, vp, vp, vp, i, ll,
-                                         ctypes.c_float, i, i, vp]
-        lib.fedml_fold_delta.restype = i
-        lib.fedml_fold_delta_chunk.argtypes = []
-        lib.fedml_fold_delta_chunk.restype = i
-        lib.fedml_fold_delta_table_cols.argtypes = []
-        lib.fedml_fold_delta_table_cols.restype = i
-        if (lib.fedml_fold_delta_chunk() != FOLD_CHUNK
-                or lib.fedml_fold_delta_table_cols() != 5):
-            raise RuntimeError("fold_delta: the kernel's chunk or table "
-                               "differs from the wrapper's")
+        f = ctypes.c_float
+        lib.fedml_fold_delta_flat.argtypes = [vp, vp, vp, ll, f, i, i, vp]
+        lib.fedml_fold_delta_table.argtypes = [vp, vp, vp, vp, i, ll, f, i,
+                                               i, vp]
+        for fn in (lib.fedml_fold_delta_flat, lib.fedml_fold_delta_table,
+                   lib.fedml_fold_delta_chunk,
+                   lib.fedml_fold_delta_table_cols):
+            fn.restype = i
+        for fn in (lib.fedml_fold_delta_chunk,
+                   lib.fedml_fold_delta_table_cols):
+            fn.argtypes = []
+        if lib.fedml_fold_delta_table_cols() != 5:
+            raise RuntimeError("fold_delta: the kernel's table differs "
+                               "from the wrapper's")
     else:
         lib.fedml_fused_epilogue.argtypes = [vp, ll, vp, i, vp, vp, vp, vp,
                                              ll, i, i, i, vp, i, vp]
@@ -454,11 +461,8 @@ def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
 
 
 # ---------------------------------------------------------------- delta fold
-#: values per block of the fold kernel; each leaf's chunks restart at its
-#: first value
-FOLD_CHUNK = 1024
-#: device copies of fold segment tables, by (device, rows): the adapters'
-#: layout repeats every round
+#: device copies of fold segment tables (the launch form of layouts that
+#: are not flat), by (device, rows): a layout repeats every round
 _fold_tables: Dict[Tuple[str, Tuple[Tuple[int, ...], ...]], torch.Tensor] = {}
 _FOLD_TABLE_CACHE = 64
 
@@ -519,6 +523,39 @@ def _segments(leaves: List[torch.Tensor]
     return packed.data_ptr(), offs, packed
 
 
+class FoldPlan(NamedTuple):
+    """One fold launch: ``form`` is ``"flat"`` (one range, ``rows`` its
+    one row) or ``"table"`` (a row a leaf, in device memory); each row is
+    ``(a_off, d_off, out_off, len, first_chunk)`` in elements and blocks;
+    ``n_chunks`` blocks in all."""
+
+    form: str
+    rows: Tuple[Tuple[int, int, int, int, int], ...]
+    n_chunks: int
+
+
+def fold_plan(sizes: List[int], a_offs: List[int], d_offs: List[int],
+              o_offs: List[int], chunk: int) -> FoldPlan:
+    """The fold kernel's launch form for leaves of ``sizes`` values that
+    start at these element offsets from the a, d and out pointers, with
+    ``chunk`` values a block: one flat range where the leaves tile all
+    three back to back in one order (``flat_tree``'s layout, at any
+    offset, which is the fed-LLM round's); else one segment a leaf in a
+    device table."""
+    starts = list(itertools.accumulate([0] + list(sizes[:-1])))
+    if all(offs[i] - offs[0] == starts[i] for offs in (a_offs, d_offs, o_offs)
+           for i in range(len(sizes))):
+        total = sum(sizes)
+        return FoldPlan("flat", ((int(a_offs[0]), int(d_offs[0]),
+                                  int(o_offs[0]), total, 0),),
+                        -(-total // chunk))
+    rows, n_chunks = [], 0
+    for n, ao, do, oo in zip(sizes, a_offs, d_offs, o_offs):
+        rows.append((int(ao), int(do), int(oo), int(n), n_chunks))
+        n_chunks += -(-n // chunk)
+    return FoldPlan("table", tuple(rows), n_chunks)
+
+
 def _fold_table(rows: Tuple[Tuple[int, ...], ...],
                 device: torch.device) -> torch.Tensor:
     key = (str(device), rows)
@@ -563,8 +600,11 @@ def fold_delta(tree: Any, delta: Any, server_lr: Any, *,
 
     On a card, one kernel launch per adapter dtype covers all its leaves:
     leaves that are contiguous views into one buffer are read where they
-    lie, others are first packed into one buffer (a copy).  CPU tensors
-    take ``fold_delta_reference``; anything else the kernel does not take
+    lie, others are first packed into one buffer (a copy).  The launch
+    form is ``fold_plan``'s: one flat range where the leaves of a, d and
+    out tile their buffers alike (the fed-LLM round's case), else a table
+    of the leaves' segments in device memory.  CPU tensors take
+    ``fold_delta_reference``; anything else the kernel does not take
     raises."""
     pairs = _leaf_pairs(tree, delta, "the delta")
     a_leaves = [a for a, _ in pairs]
@@ -617,23 +657,31 @@ def fold_delta(tree: Any, delta: Any, server_lr: Any, *,
         d_ptr, d_offs, d_keep = _segments([d_leaves[i] for i in idx])
         if o_leaves is None:
             o_base = torch.empty(sum(sizes), dtype=dtype, device=dev)
-            o_ptr, o_offs = o_base.data_ptr(), np.cumsum([0] + sizes[:-1])
+            o_ptr = o_base.data_ptr()
+            o_offs = list(itertools.accumulate([0] + sizes[:-1]))
         else:
             o_ptr, o_offs, o_keep = _segments([o_leaves[i] for i in idx])
             if o_keep is not None:
                 raise ValueError("fold_delta: out leaves of one dtype must "
                                  "be contiguous views into one buffer")
-        rows, chunk = [], 0
-        for n, ao, do, oo in zip(sizes, a_offs, d_offs, o_offs):
-            rows.append((ao, do, int(oo), n, chunk))
-            chunk += -(-n // FOLD_CHUNK)
-        table = _fold_table(tuple(rows), dev)
-        rc = lib.fedml_fold_delta(a_ptr, d_ptr, o_ptr, table.data_ptr(),
-                                  len(rows), chunk, lr, _DTYPE_CODES[dtype],
-                                  device_index, stream)
+        plan = fold_plan(sizes, a_offs, d_offs, o_offs,
+                         lib.fedml_fold_delta_chunk())
+        code = _DTYPE_CODES[dtype]
+        if plan.form == "flat":
+            ao, do, oo, total, _ = plan.rows[0]
+            size = a_leaves[idx[0]].element_size()
+            rc = lib.fedml_fold_delta_flat(
+                a_ptr + ao * size, d_ptr + do * 4, o_ptr + oo * size, total,
+                lr, code, device_index, stream)
+        else:
+            table = _fold_table(plan.rows, dev)
+            rc = lib.fedml_fold_delta_table(
+                a_ptr, d_ptr, o_ptr, table.data_ptr(), len(plan.rows),
+                plan.n_chunks, lr, code, device_index, stream)
         del a_keep, d_keep      # packed copies: freed in stream order
         _check_launch(rc, lib, "fold_delta")
         LAUNCHES["fold_delta"] += 1
+        FOLD_FORMS[plan.form] += 1
         if o_leaves is None:
             for i, part in zip(idx, torch.split(o_base, sizes)):
                 results[i] = part.view(a_leaves[i].shape)

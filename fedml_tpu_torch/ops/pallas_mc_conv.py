@@ -22,7 +22,8 @@ Names, JAX package → port:
   ``None`` or ``"kernel"``: the kernels on CUDA tensors, their plain
   versions on CPU tensors (which is what ``"interpret"`` gave the JAX
   tests); ``"xla"`` (the vmapped lax conv, the baseline the kernel must
-  beat) → ``"library"``: one ``F.conv2d`` per client.
+  beat, one grouped conv once XLA lowers it) → ``"library"``: one
+  grouped ``F.conv2d`` (groups = K).
 
 Contracts, as in the JAX package:
 
@@ -46,7 +47,8 @@ Contracts, as in the JAX package:
 A CUDA tensor launches the kernel or raises: no path gives way to a plain
 or library version.  ``LAUNCHES`` counts kernel launches where the
 wrappers make them; ``LIBRARY_CALLS["dx"]`` counts the library input
-gradients of the backward.
+gradients of the backward, ``LIBRARY_CALLS["fwd"]`` the library arm's
+grouped convs.
 """
 
 from __future__ import annotations
@@ -62,8 +64,9 @@ from . import cuda_build
 #: launches of the CUDA kernels, counted where the wrappers launch them
 #: (``mc_conv.wgrad``: one per weight gradient, its split sum included)
 LAUNCHES = {"mc_conv.fwd": 0, "mc_conv.wgrad": 0}
-#: the backward's library input gradients (strided or even-kernel convs)
-LIBRARY_CALLS = {"dx": 0}
+#: the library's grouped calls: the backward's input gradients of strided
+#: or even-kernel convs (``dx``) and ``impl="library"``'s convs (``fwd``)
+LIBRARY_CALLS = {"dx": 0, "fwd": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -302,14 +305,25 @@ def mc_conv_wgrad(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int,
 # ------------------------------------------------------------ the library
 def _library_conv(x: torch.Tensor, w: torch.Tensor, stride: Stride
                   ) -> torch.Tensor:
-    """One client's SAME conv through ``F.conv2d``: x [B, H, W, Ci],
-    w [kh, kw, Ci, Co] → [B, OH, OW, Co], padded with ``F.pad`` first."""
-    _, h, wd, _ = x.shape
-    kh, kw = w.shape[0], w.shape[1]
+    """The K clients' SAME convs as one grouped ``F.conv2d`` (groups = K):
+    x [K, B, H, W, Ci] padded with ``F.pad`` first and laid out as a
+    channels-last [B, K·Ci, Hp, Wp], w as [K·Co, Ci, kh, kw]; the
+    channels-last [B, K·Co, OH, OW] result viewed as [K, B, OH, OW, Co].
+    ``LIBRARY_CALLS["fwd"]`` counts the call."""
+    k, b, h, wd, ci = x.shape
+    _, kh, kw, _, co = w.shape
     _, _, (pt, pb), (pl, pr) = same_padding(h, wd, kh, kw, stride)
-    xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    return F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride
-                    ).permute(0, 2, 3, 1)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    hp, wp = xp.shape[2], xp.shape[3]
+    xg = xp.permute(1, 2, 3, 0, 4).reshape(b, hp, wp, k * ci
+                                           ).permute(0, 3, 1, 2)
+    wg = w.permute(0, 4, 1, 2, 3).reshape(k * co, kh, kw, ci
+                                          ).permute(0, 3, 1, 2)
+    y = F.conv2d(xg, wg, stride=stride, groups=k)
+    LIBRARY_CALLS["fwd"] += 1
+    oh, ow = y.shape[2], y.shape[3]
+    return y.permute(0, 2, 3, 1).reshape(b, oh, ow, k, co
+                                         ).permute(3, 0, 1, 2, 4)
 
 
 def _library_dx(x_shape: torch.Size, w: torch.Tensor, g: torch.Tensor,
@@ -379,16 +393,16 @@ def conv_for_clients(x: torch.Tensor, w: torch.Tensor,
     * ``impl=None`` or ``"kernel"`` → ``mc_conv``: the CUDA kernels on a
       card, their plain versions on the CPU (the JAX ``"pallas"`` and
       ``"interpret"`` arms);
-    * ``impl="library"`` → one ``F.conv2d`` per client, padded as SAME
-      pads (the JAX ``"xla"`` arm), kept as the measured baseline; it runs
-      only when asked.
+    * ``impl="library"`` → one grouped ``F.conv2d`` over the K clients,
+      padded as SAME pads (the JAX ``"xla"`` arm, which XLA lowers to one
+      grouped conv), kept as the measured baseline; it runs only when
+      asked.
     """
     _check(x, w)
     stride = _stride(stride)
     if impl in (None, "kernel"):
         return mc_conv(x, w, stride)
     if impl == "library":
-        return torch.stack([_library_conv(x[i], w[i], stride)
-                            for i in range(x.shape[0])])
+        return _library_conv(x, w, stride)
     raise ValueError(f"conv_for_clients: unknown impl {impl!r} (known: None,"
                      f" 'kernel', 'library')")

@@ -28,11 +28,9 @@ it exits non-zero.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import statistics
-import subprocess
 
 import torch
 import torch.nn.functional as F
@@ -43,24 +41,6 @@ from fedml_tpu_torch.ops import pallas_mc_conv as mcc
 
 FNS = ("fedml_mc_conv_fwd", "fedml_mc_conv_wgrad_splits",
        "fedml_mc_conv_wgrad", "fedml_cuda_error_string")
-
-
-def build(name, src, like):
-    """nvcc ``src`` into ``csrc/build/libmc_conv_<name>.so`` and bind it
-    with the C interface of ``like``, the checkout's bound build."""
-    out = cuda_build.BUILD_DIR / f"libmc_conv_{name}.so"
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-                           "-o", str(out), src], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    for fn in FNS:
-        ours, theirs = getattr(like, fn), getattr(lib, fn)
-        theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
-    return lib
 
 
 def accuracy(x, w, g, k, stride):
@@ -102,7 +82,8 @@ def main():
     libs = {"new": mcc._kernel_lib()}
     for spec in args.other:
         name, path = spec.split("=", 1)
-        libs[name] = build(name, path, libs["new"])
+        libs[name] = cuda_build.load_variant(
+            f"mc_conv_{name}", path, libs["new"], FNS)
     others = list(libs)[1:]
     order = ["new"] + others + others[::-1] + ["new"]
     peak = chip_smoke.card_peaks(card)[2]

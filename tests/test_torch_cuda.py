@@ -338,6 +338,26 @@ def test_flash_kernel_matches_plain_version(causal, t, d, dtype, card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 16, 31, 32, 33, 65])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_short_lengths(causal, t, dtype, card):
+    """Sequences around the float32 kernel's 16-row query blocks, 8-key
+    groups and 64-key tiles, and the bfloat16 kernel's 32-row ones (the
+    fed-LLM eval's T is 32), every head dim, with t_valid at T and ragged
+    inside it (two thirds of T; 0 at T = 1); one launch a call."""
+    for d in attn.HEAD_DIMS:
+        q, k, v = _flash_inputs(4, 2, t, d, dtype, card, seed=31 * t + d)
+        for t_valid in (t, t * 2 // 3):
+            before = attn.LAUNCHES["flash_attention"]
+            got = attn.flash_attention_residuals(q, k, v, causal, t_valid)
+            torch.cuda.synchronize()
+            assert attn.LAUNCHES["flash_attention"] == before + 1
+            _check_partial(got, attn._reference_residuals(q, k, v, causal,
+                                                          t_valid), dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(32, 2, 80, 64), (8, 2, 512, 64)])
 def test_flash_bf16_o_rounds_as_the_plain_version(shape, card):
     """The language model's eval passes (BERT-tiny at 80 tokens and at
@@ -728,6 +748,58 @@ def test_fold_delta_matches_plain_version_bit_for_bit(name, card):
         _bits_equal(g, w)
 
 
+def _views(buf, sizes, gap):
+    """Views of ``sizes`` values into ``buf``, ``gap`` values apart."""
+    out, off = [], 0
+    for n in sizes:
+        out.append(buf[off:off + n])
+        off += n + gap
+    return out
+
+
+#: layout -> (leaf sizes, gap between the delta's leaves, launch form):
+#: BERT-tiny's rank-4 leaves laid out alike (one flat range), the same
+#: with 3 values between the delta's leaves, 120 leaves of 1 to 700
+#: values with gaps (both a device table)
+FOLD_FORM_CASES = {
+    "alike": ([n for d_in, d_out in LORA_TARGETS for n in (4 * d_in,
+                                                           4 * d_out)],
+              0, "flat"),
+    "gaps": ([n for d_in, d_out in LORA_TARGETS for n in (4 * d_in,
+                                                          4 * d_out)],
+             3, "table"),
+    "many_leaves": ([1 + (97 * i) % 700 for i in range(120)], 5, "table"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", sorted(FOLD_FORM_CASES))
+def test_fold_delta_launch_forms_match_bit_for_bit(layout, dtype, card):
+    """Each launch form of ``fold_plan`` on the card, bit for bit against
+    ``fold_delta_reference``, one launch counted under its form, into a
+    new buffer and in place."""
+    sizes, gap, form = FOLD_FORM_CASES[layout]
+    gen = torch.Generator().manual_seed(len(sizes) + gap)
+    total = sum(sizes) + gap * len(sizes)
+    a_buf = (torch.randn(sum(sizes), generator=gen) * 0.01).to(dtype).to(card)
+    d_buf = (torch.randn(total, generator=gen) * 1e-3).to(card)
+    a = _views(a_buf, sizes, 0)
+    d = _views(d_buf, sizes, gap)
+    lib = epilogue._kernel_lib("fold_delta")
+    assert lib.fedml_fold_delta_chunk() == 512
+    for out in (None, a):
+        want = epilogue.fold_delta_reference(a, d, 0.37)
+        before = dict(epilogue.FOLD_FORMS), epilogue.LAUNCHES["fold_delta"]
+        got = epilogue.fold_delta(a, d, 0.37, out=out)
+        torch.cuda.synchronize()
+        assert epilogue.LAUNCHES["fold_delta"] == before[1] + 1
+        assert epilogue.FOLD_FORMS == {
+            k: v + (k == form) for k, v in before[0].items()}
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            _bits_equal(g, w)
+
+
 @pytest.mark.gpu
 def test_fold_delta_in_place_and_mixed_dtypes(card):
     """``out`` = the adapters folds in place; a tree of float32 and
@@ -909,7 +981,7 @@ def test_mc_conv_kernels_match_plain_versions(name, dtype, card):
     """Forward, dx and dw on the card against the plain versions on the
     same inputs.  dx of a stride-1 odd conv is the forward kernel on
     flipped weights; the others take the library input gradient, held here
-    against autograd through the per-client library conv in float32, with
+    against autograd through the library arm (one grouped conv) in float32, with
     cuDNN's TF32 off as the port's ``get_device`` sets it."""
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         _check_mc_conv_case(name, dtype, card)

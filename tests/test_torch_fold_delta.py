@@ -207,3 +207,61 @@ def test_delta_round_folds_merges_and_never_aliases(lr):
     for x, y in zip(tree_leaves(merged),
                     tree_leaves(apply_lora(base, new, 16.0))):
         assert torch.equal(x, y)
+
+
+#: the fold kernel's values a block (``fedml_fold_delta_chunk``)
+CHUNK = 512
+
+
+def _offsets(tree):
+    """Each leaf's element offset in its buffer, as the wrapper reads it."""
+    return epilogue._segments(tree_leaves(tree))[1]
+
+
+def test_fold_plan_of_the_fed_llm_round_is_one_flat_range():
+    """flat_tree's adapters, zeros_like_adapters' delta and a new output
+    buffer (the fed-LLM round's fold): one range over all 11,112 values,
+    22 blocks of 512."""
+    ad, _ = _np_pair(4, seed=6)
+    a = epilogue.flat_tree(_torch(ad, torch.float32))
+    d = zeros_like_adapters(a)
+    sizes = [t.numel() for t in tree_leaves(a)]
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    plan = epilogue.fold_plan(sizes, _offsets(a), _offsets(d), starts,
+                              CHUNK)
+    assert plan == epilogue.FoldPlan("flat", ((0, 0, 0, 11112, 0),), 22)
+
+
+@pytest.mark.parametrize("layout,form", [
+    ("misaligned", "flat"), ("in_place", "flat"),
+    ("out_elsewhere", "table"), ("gaps", "table"),
+    ("many_leaves_with_gaps", "table"), ("many_leaves_back_to_back", "flat")])
+def test_fold_plan_picks_the_launch_form(layout, form):
+    """Hand-built layouts: a buffer that starts misaligned (one range at its
+    offset), a fold in place, out in another buffer at other relative
+    offsets, leaves with gaps between them, and 200 leaves with gaps in a
+    and d or back to back in all three."""
+    sizes = [1000, 37, 4, 512]
+    starts = [0, 1000, 1037, 1041]
+    a, d, o = [3 + s for s in starts], starts, starts
+    if layout == "in_place":
+        o = a
+    elif layout == "out_elsewhere":
+        o = [553, 516, 512, 0]          # the leaves in reverse order
+    elif layout == "gaps":
+        a = [0, 1008, 1048, 1056]
+    elif layout.startswith("many_leaves"):
+        sizes = [3] * 200
+        o = [3 * i for i in range(200)]
+        a = d = o if layout.endswith("back_to_back") else [
+            5 * i for i in range(200)]
+    plan = epilogue.fold_plan(sizes, a, d, o, CHUNK)
+    assert plan.form == form
+    if form == "flat":
+        assert plan.rows == ((a[0], d[0], o[0], sum(sizes), 0),)
+        assert plan.n_chunks == -(-sum(sizes) // CHUNK)
+    else:
+        firsts = [0] + [sum(-(-n // CHUNK) for n in sizes[:i + 1])
+                        for i in range(len(sizes) - 1)]
+        assert plan.rows == tuple(zip(a, d, o, sizes, firsts))
+        assert plan.n_chunks == sum(-(-n // CHUNK) for n in sizes)

@@ -109,7 +109,7 @@ def test_grads_match_jax(name):
 
 @pytest.mark.parametrize("name", ["s1", "s2"])
 def test_library_matches_jax_xla(name):
-    """``impl="library"`` (one F.conv2d per client, SAME pads first)
+    """``impl="library"`` (one grouped F.conv2d, SAME pads first)
     against the JAX ``impl="xla"`` arm, and against the plain kernel path."""
     stride = CASES[name][8]
     x, w, _ = _inputs(name)
@@ -120,6 +120,30 @@ def test_library_matches_jax_xla(name):
     np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
     np.testing.assert_allclose(
         mc.conv_for_clients(xt, wt, stride).numpy(), want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("name", ["s1", "s2", "shortcut_1x1_s2"])
+def test_library_arm_is_one_grouped_conv(name, monkeypatch):
+    """``impl="library"`` on K clients is one ``F.conv2d`` with groups = K,
+    counted once in ``LIBRARY_CALLS["fwd"]``, for strides 1 and 2 and a 1x1
+    conv."""
+    k, stride = CASES[name][0], CASES[name][8]
+    x, w, _ = _inputs(name)
+    calls = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("groups"))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    before = mc.LIBRARY_CALLS["fwd"]
+    got = mc.conv_for_clients(torch.from_numpy(x), torch.from_numpy(w),
+                              stride, impl="library")
+    assert calls == [k]
+    assert mc.LIBRARY_CALLS["fwd"] == before + 1
+    np.testing.assert_allclose(got.numpy(), _jax_run(name)[0],
+                               **TOL["float32"])
 
 
 @pytest.mark.parametrize("name,library_dx", [("s1", 0), ("s2", 1),
