@@ -22,8 +22,10 @@ raises and ends the run with a non-zero exit:
    another length than the queries, scores of large magnitude, no key or
    one, and a causal length of 97), the int8 wire codec's quantize
    and dequantize, bit for bit (the unit-test sizes, with rows that hold a
-   NaN or an infinity, ResNet-56's whole flat vector as one segment and
-   its 287 leaves as a segment table), top-k selection on ties against
+   NaN or an infinity, ResNet-56's whole flat vector as one segment, its
+   287 leaves as segments, which the dequantize takes by value, and 2,100
+   leaves of 1 to 3 values, past that form's capacity, through the device
+   table), top-k selection on ties against
    the CPU's, bit for bit, and the fed-LLM adapter fold, bit for bit
    (float32 and bfloat16 adapters, ``server_lr`` 0, 1 and 0.37, BERT-tiny's
    10-leaf rank-4 table, rank-3 leaves that are no multiples of 4, and a
@@ -35,7 +37,8 @@ raises and ends the run with a non-zero exit:
    bfloat16), and
    ``ops/pallas_ops``' weighted average and int8 product (within the
    float32 bound of a sum of C or K terms; the tests' cases, ragged and
-   misaligned operands, and the main paths' shapes) and quantize-mask
+   misaligned operands, M on both sides of the CUDA-core path's limit,
+   and the main paths' shapes) and quantize-mask
    (bit for bit, with out-of-range, infinite and NaN values);
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
@@ -110,7 +113,8 @@ raises and ends the run with a non-zero exit:
     sum); and one decode step's 72 ``int8_matmul`` products over a
     GPT-2-small-width parameter dict quantized by ``quantize_lm_params``
     (``benchmarks/serve_bench.py``'s widths: dim 768, 12 layers, decode
-    batch 64), at M = 64 and M = 1.
+    batch 64), at M = 64 and M = 1, with the device kernels of each step
+    counted in a ``torch.profiler`` trace (one a product).
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
 9, 11, 12, 14 and 15) is driven with the kernels' launch counts set to 0 just
@@ -286,7 +290,7 @@ def check(cond, msg):
 
 def reset_launches():
     for counts in (epilogue.LAUNCHES, epilogue.FOLD_FORMS, attn.LAUNCHES,
-                   wc.LAUNCHES, mcc.LAUNCHES, po.LAUNCHES):
+                   wc.LAUNCHES, wc.DEQUANT_FORMS, mcc.LAUNCHES, po.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -954,19 +958,28 @@ def wire_kernel_phase(dev):
     d_main = sum(lengths)
     cases = [(f"D={d}", d, None) for d in (1, 511, 512, 513, 32 * 512 + 7,
                                            100_000)]
+    # past the by-value capacity (2,048 scale rows): 2,100 one-row leaves
+    past = [1 + i % 3 for i in range(2100)]
     cases += [("resnet56_flat", d_main, None),
-              ("resnet56_leaves", d_main, lengths)]
+              ("resnet56_leaves", d_main, lengths),
+              ("past_capacity", sum(past), past)]
     errs = {"wire_compression.quantize": 0.0,
             "wire_compression.dequantize": 0.0}
+    forms = {}
     for label, d, lens in cases:
         x = _wire_vector(d, gen).to(dev)
         before = dict(wc.LAUNCHES)
+        form_before = dict(wc.DEQUANT_FORMS)
         q, s = wc.quantize_int8_blocked(x, lens)
         out = wc.dequantize_int8_blocked(q, s, d, lens)
         torch.cuda.synchronize()
         check(wc.LAUNCHES["quantize"] == before["quantize"] + 1
               and wc.LAUNCHES["dequantize"] == before["dequantize"] + 1,
               f"wire kernels {label}: one launch each, got {wc.LAUNCHES}")
+        form = wc.dequantize_form(lens or [d])
+        check(wc.DEQUANT_FORMS[form] == form_before[form] + 1,
+              f"dequantize {label}: not the {form} form")
+        forms[form] = forms.get(form, 0) + 1
         want_q, want_s, want = _wire_plain(x, lens)
         errs["wire_compression.quantize"] = max(
             errs["wire_compression.quantize"],
@@ -980,7 +993,8 @@ def wire_kernel_phase(dev):
           f"random, zero, on .5, below 1e-30, above 1e30, negative, with a "
           f"NaN, with +inf and -inf): "
           f"{', '.join(c[0] for c in cases)} ({len(lengths)} segments, D "
-          f"{d_main}), one launch each per call; max |err| "
+          f"{d_main}), one launch each per call, the dequantize's forms "
+          f"{forms}; max |err| "
           f"{errs['wire_compression.quantize']:.1e} / "
           f"{errs['wire_compression.dequantize']:.1e} (tolerance: equal "
           f"bits)")
@@ -1188,9 +1202,10 @@ def wire_timing_phase(dev, card):
     tq = _time_ms(lambda: wc.quantize_int8_blocked(x, lengths), flush)
     td = _time_ms(lambda: wc.dequantize_int8_blocked(qs, ss, d, lengths),
                   flush)
-    phase(4, "timing", f"wire kernels over the broadcast's {len(lengths)}-"
-          f"segment table ({ss.numel()} scales), cold L2, median of 50: "
-          f"quantize {tq:.4f} ms, dequantize {td:.4f} ms")
+    phase(4, "timing", f"wire kernels over the broadcast's {len(lengths)} "
+          f"segments ({ss.numel()} scales; the quantize through the device "
+          f"table, the dequantize {wc.dequantize_form(lengths)}), cold L2, "
+          f"median of 50: quantize {tq:.4f} ms, dequantize {td:.4f} ms")
     return out, codec_host_phase(dev)
 
 
@@ -2569,6 +2584,51 @@ def decode_work(mats, m):
     return nbytes, sum(2 * m * q.numel() for q, _ in mats)
 
 
+def int8_bound(nbytes, flops, m, card, dev):
+    """The int8 product's bound at batch ``m``: the bytes at the memory
+    rate against the operations of the path the kernel takes there (on the
+    tensor cores, 3 bf16 passes of float32 x at the dense bf16 rate; on the
+    CUDA cores, one pass at the float32 rate); (ms, which, both figures)."""
+    plan = po.int8_matmul_plan(m, GPT2["dim"], GPT2["dim"], torch.float32,
+                               dev)
+    tensor = plan["path"] == "tensor"
+    passes = 3 if tensor else 1
+    bound_ms, bound_by = _bound(nbytes, passes * flops, card,
+                                peak="bf16" if tensor else "f32")
+    bw, f32, bf16 = card_peaks(card)
+    rate = bf16 if tensor else f32
+    text = (f"bytes {nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s = "
+            f"{nbytes / bw * 1e3:.4f} ms; operations {passes} x "
+            f"{flops / 1e9:.2f} GFLOP at {rate / 1e12:.0f} TFLOP/s "
+            f"({'bf16 tensor cores' if tensor else 'float32 CUDA cores'}, the "
+            f"{plan['path']} path) = {passes * flops / rate * 1e3:.4f} ms")
+    return bound_ms, bound_by, text
+
+
+def _device_kernels(fn):
+    """The names of the device activities ``torch.profiler`` records over
+    one call of ``fn``, the profiler's second step: its first, a warm-up
+    call, absorbs the activities a trace loses as it starts (two of a
+    decode step's 72 kernels on the H100).  Fails where it records none:
+    the count is what the phase checks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    check(kernels, "the profiler recorded no device activity")
+    return kernels
+
+
 def po_kernel_phase(dev):
     """Kernels B7, B8 and B9 against their plain versions on the card: the
     CPU tests' cases, weights of every kernel type, ragged and misaligned
@@ -2625,7 +2685,13 @@ def po_kernel_phase(dev):
             ("w2_m64_bf16", 64, 4 * dim, dim, torch.bfloat16, 0, 0),
             ("ragged", 17, 100, 203, torch.float32, 0, 0),
             ("misaligned_q", 8, 64, 256, torch.float32, 1, 0),
-            ("strided_x", 5, 96, 128, torch.float32, 0, 7)):
+            ("strided_x", 5, 96, 128, torch.float32, 0, 7),
+            ("m2", 2, dim, dim, torch.float32, 0, 0),
+            ("m8_k48", 8, 48, dim, torch.float32, 0, 0),
+            ("m9", 9, dim, dim, torch.float32, 0, 0),
+            ("m16_bf16", 16, dim, dim, torch.bfloat16, 0, 0),
+            ("m32_k100", 32, 100, 203, torch.float32, 0, 0),
+            ("m130", 130, 256, 192, torch.float32, 0, 0)):
         qs = quantize_matrix_int8(torch.randn(k, n, generator=gen).to(dev)
                                   * k ** -0.5)
         x = torch.randn(m, k + pad, generator=gen).to(dtype).to(dev)[:, :k]
@@ -2747,7 +2813,8 @@ def po_timing_phase(dev, card):
         k2 = _time_ms(kernel, flush, **_hidden(kernel))
         p2 = _time_ms(plain, flush, **_hidden(plain))
         nbytes, flops = decode_work(mats, m)
-        bound_ms, bound_by = _bound(nbytes, flops, card)
+        bound_ms, bound_by, bound_text = int8_bound(nbytes, flops, m, card,
+                                                    dev)
         ms = statistics.median([k1, k2])
         mm_rows[m] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
                           library_ms=lib, bound_ms=bound_ms,
@@ -2761,10 +2828,8 @@ def po_timing_phase(dev, card):
               f"weights) at M {m}, f32 x, cold L2, median of 50: kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
               f"library {lib_text} (the plain version is the cuBLAS pair "
-              f"matmul(x, f32(q)) * s); bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at float32 "
-              f"{card_peaks(card)[1] / 1e12:.0f} TFLOP/s on the CUDA cores) "
-              f"-> {bound_ms / ms:.1%} of the bound")
+              f"matmul(x, f32(q)) * s); bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{bound_text}) -> {bound_ms / ms:.1%} of the bound")
     rows["pallas_ops.int8_matmul"] = mm_rows[DECODE_BATCH]
     return rows
 
@@ -2870,7 +2935,7 @@ def po_main_path_phase(n, dev):
                   f"phase {n}: {k} dequantizes more than half a scale off")
             q_err = max(q_err, float(err.max()))
     del params
-    mm_err, mm_launches = {}, 0
+    mm_err, mm_launches, traced = {}, 0, {}
     for m in (DECODE_BATCH, 1):
         xs = decode_inputs(m, dev, seed=19 + m)
         torch.cuda.synchronize()
@@ -2882,15 +2947,28 @@ def po_main_path_phase(n, dev):
               f"phase {n}: {got['pallas_ops.int8_matmul']} int8_matmul "
               f"launches at M {m}, not {len(mats)}")
         mm_launches += got["pallas_ops.int8_matmul"]
+        # the same step under the profiler: one device kernel a product
+        kernels = _device_kernels(
+            lambda: [po.int8_matmul(xs[q.shape[0]], q, s) for q, s in mats])
+        check(len(kernels) == len(mats),
+              f"phase {n}: the trace of a decode step at M {m} holds "
+              f"{len(kernels)} device kernels, not {len(mats)}: "
+              f"{sorted(set(k[:60] for k in kernels))}")
+        traced[m] = (len(kernels), sorted(set(k.split('<')[0]
+                                              for k in kernels)))
         mm_err[m] = max(_order_err(
             o, po.int8_matmul_reference(xs[q.shape[0]], q, s),
             po.int8_matmul_reference(xs[q.shape[0]].abs(), q.abs(), s),
             q.shape[0], f"phase {n}: int8_matmul M {m}")
             for o, (q, s) in zip(outs, mats))
     launches["pallas_ops.int8_matmul"] = mm_launches
-    b1 = _bound(*decode_work(mats, 1), torch.cuda.get_device_name(0))
-    b64 = _bound(*decode_work(mats, DECODE_BATCH),
-                 torch.cuda.get_device_name(0))
+    card = torch.cuda.get_device_name(0)
+    b1 = int8_bound(*decode_work(mats, 1), 1, card, dev)
+    b64 = int8_bound(*decode_work(mats, DECODE_BATCH), DECODE_BATCH, card,
+                     dev)
+    trace_text = ("; device kernels a step in a torch.profiler trace: " +
+                  ", ".join(f"M {m} {c} ({', '.join(names)})"
+                            for m, (c, names) in traced.items()))
     phase(n, "main path", f"one decode step's int8 products at GPT-2-small "
           f"widths (dim {GPT2['dim']}, {GPT2['layers']} layers; "
           f"quantize_lm_params: {len(mats)} matrices, {n_weights} int8 "
@@ -2900,7 +2978,7 @@ def po_main_path_phase(n, dev):
           f"{mm_err[DECODE_BATCH]:.2e} (M {DECODE_BATCH}), {mm_err[1]:.2e} "
           f"(M 1), tolerance K·2^-24·(|x|@|q|)·s; bound of the step: M 1 "
           f"{b1[0]:.4f} ms ({b1[1]}), M {DECODE_BATCH} {b64[0]:.4f} ms "
-          f"({b64[1]})")
+          f"({b64[1]}){trace_text}")
     return launches
 
 

@@ -12,10 +12,11 @@ Port of ``fedml_tpu/ops/pallas_ops.py``.  Names, JAX package → port:
 * ``_qmask_kernel`` (``quantize_mask``) → ``qmask_kernel``, plain version
   ``quantize_mask_reference``: SecAgg's fused quantize and mask add,
   ``uint32(int32(round(x · scale))) + mask`` modulo 2^32;
-* ``_int8_mm_kernel`` (``int8_matmul``) → ``int8_mm_kernel`` (and
-  ``split_sum_kernel`` when K is split across blocks), plain version
-  ``int8_matmul_reference``: ``(x @ f32(q)) · s`` for int8 weights ``q``
-  ``[K, N]`` with per-column scales ``s`` ``[N]``.
+* ``_int8_mm_kernel`` (``int8_matmul``) → ``int8_mm_tc_kernel`` (the
+  tensor cores) or, for decode batches of at most ``gemv_max_m()`` rows,
+  ``int8_gemv_kernel`` (the CUDA cores), one launch a product, plain
+  version ``int8_matmul_reference``: ``(x @ f32(q)) · s`` for int8 weights
+  ``q`` ``[K, N]`` with per-column scales ``s`` ``[N]``.
 
 Contracts, as in the JAX package:
 
@@ -40,14 +41,18 @@ Contracts, as in the JAX package:
 * ``int8_matmul`` takes x float32 or bfloat16 ``[M, K]`` (read as
   float32), q int8 ``[K, N]`` and s float32 ``[N]``, and returns float32
   ``[M, N]``: the product summed first, then scaled.  The sum's order is
-  the kernel's own (split K, each split in order), so it agrees with the
-  plain version within ``K · 2^-24 · (|x| @ |q|) · s``.
+  the kernel's own (K split across the blocks of a cluster, each split in
+  order, the splits added in rank order), so it agrees with the plain
+  version within ``K · 2^-24 · (|x| @ |q|) · s``, and with itself bit for
+  bit from call to call.  On the tensor cores a float32 x enters as three
+  bfloat16 parts (``bf16_parts``), each product with q exact, summed in
+  float32: an int8 value is exact in bfloat16.
 
 A CUDA tensor launches the kernel or raises, on a dtype, shape, layout or
 device the kernel does not take: no path gives way to the plain version.
 CPU tensors take the plain versions.  ``LAUNCHES`` counts the launches
-where the wrappers make them (``pallas_ops.int8_matmul`` once per product,
-its split sum included).  The kernels are built at first use
+where the wrappers make them (``pallas_ops.int8_matmul`` once per
+product).  The kernels are built at first use
 (``ops/cuda_build.py``), never at import.
 
 The Pallas kernels' 1024-lane blocks and the padding of D and N to them
@@ -58,7 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +75,12 @@ from . import cuda_build
 #: launches it (under a lock: SecAgg's silos may mask from threads)
 LAUNCHES = {"pallas_ops.weighted_average": 0, "pallas_ops.quantize_mask": 0,
             "pallas_ops.int8_matmul": 0}
+#: what the tensor-core path multiplies each of ``bf16_parts``' scaled
+#: parts of float32 x by, times q: the parts are scaled up by as much
+PART_SCALES = (1.0, 2.0 ** -8, 2.0 ** -16)
+#: the kernel scales a staged chunk's parts where it holds a nonzero |x|
+#: below this (``csrc/pallas_ops.cu`` ``kTinyX``)
+TINY_X = 2.0 ** -110
 #: SecAgg's default fixed-point scale (``fedml_tpu/ops/pallas_ops.py:109``)
 SCALE = 2.0 ** 16
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,10 +110,12 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.fedml_quantize_mask.argtypes = [vp, i, vp, vp,
                                                 ctypes.c_float, ll, i, vp]
             lib.fedml_quantize_mask.restype = i
-            lib.fedml_int8_matmul_chunk.argtypes = [i, i, i, i]
-            lib.fedml_int8_matmul_chunk.restype = i
-            lib.fedml_int8_matmul.argtypes = [vp, i, ll, vp, vp, vp, vp, i,
-                                              i, i, i, i, vp]
+            lib.fedml_int8_gemv_max_m.argtypes = []
+            lib.fedml_int8_gemv_max_m.restype = i
+            lib.fedml_int8_matmul_plan.argtypes = [i, i, i, i, i, vp]
+            lib.fedml_int8_matmul_plan.restype = i
+            lib.fedml_int8_matmul.argtypes = [vp, i, ll, vp, vp, vp, i, i,
+                                              i, i, vp]
             lib.fedml_int8_matmul.restype = i
             lib.fedml_cuda_error_string.argtypes = [i]
             lib.fedml_cuda_error_string.restype = ctypes.c_char_p
@@ -269,6 +282,54 @@ def quantize_mask(x: torch.Tensor, mask: torch.Tensor,
 
 
 # ------------------------------------------------------- int8 weight product
+def bf16_parts(x: torch.Tensor, scaled: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor-core path's split of float32 x into three bfloat16 parts,
+    as the kernel stages them (``csrc/pallas_ops.cu`` ``split3``): ``hi =
+    bf16(x)``, ``mid`` = ``(x − hi) · up`` truncated to bfloat16 (so
+    ``hi + mid / up`` never passes x), ``lo`` = the rest times ``up``;
+    ``up`` is 2^8 where ``scaled`` (a chunk that holds a nonzero ``|x| <
+    TINY_X``), else 1.  Unscaled, ``hi + mid + lo = x`` exactly for finite
+    ``|x| >= TINY_X``; scaled, ``hi + mid · 2^-8 + lo · 2^-16 = x``
+    (``PART_SCALES``) for every finite x, subnormals included: the scaling
+    keeps the parts' bits above bfloat16's least subnormal.  A finite x
+    that rounds past bfloat16's largest value takes hi truncated; a
+    non-finite x is hi alone (mid and lo 0)."""
+    def truncated(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    up = 1.0 / PART_SCALES[1] if scaled else 1.0
+    hi = x.to(torch.bfloat16).float()
+    hi = torch.where(torch.isinf(hi) & torch.isfinite(x), truncated(x), hi)
+    finite = torch.isfinite(hi)
+    r = torch.where(finite, x - hi, torch.zeros_like(x)) * up
+    mid = truncated(r)
+    lo = ((r - mid) * up).to(torch.bfloat16)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo
+
+
+def gemv_max_m() -> int:
+    """The largest M the int8 product runs on the CUDA cores (the kernel's
+    ``kGemvMaxM``); builds the kernels."""
+    return _kernel_lib().fedml_int8_gemv_max_m()
+
+
+def int8_matmul_plan(m: int, k: int, n: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, Any]:
+    """How the kernel runs an ``[m, k] @ [k, n]`` product on ``device``,
+    for reports: its path, the blocks of a cluster (they split K), K a
+    split and the blocks in all."""
+    lib = _kernel_lib()
+    plan = (ctypes.c_int * 4)()
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    rc = lib.fedml_int8_matmul_plan(m, k, n, _X_CODES[dtype], dev, plan)
+    _check_launch(rc, lib, "int8_matmul plan")
+    return {"path": {1: "cores", 2: "tensor"}[plan[0]], "splits": plan[1],
+            "chunk": plan[2], "blocks": plan[3]}
+
+
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
                           s: torch.Tensor) -> torch.Tensor:
     """The plain version, the JAX package's jnp fallback:
@@ -300,16 +361,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
         raise ValueError("int8_matmul kernel takes contiguous q and s")
     (m, k), n = x.shape, q.shape[1]
     lib = _kernel_lib()
-    dev = _device_index(x)
-    chunk = lib.fedml_int8_matmul_chunk(m, k, n, dev)
-    splits = -(-k // chunk)
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    part = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     rc = lib.fedml_int8_matmul(x.data_ptr(), code, x.stride(0), q.data_ptr(),
-                               s.data_ptr(), out.data_ptr(),
-                               part.data_ptr() if part is not None else None,
-                               m, k, n, chunk, dev, _stream(x))
+                               s.data_ptr(), out.data_ptr(), m, k, n,
+                               _device_index(x), _stream(x))
     _check_launch(rc, lib, "int8_matmul")
     _count("pallas_ops.int8_matmul")
     return out

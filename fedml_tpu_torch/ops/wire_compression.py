@@ -13,13 +13,20 @@ Port of ``fedml_tpu/ops/wire_compression.py``:
   ``jax.lax.top_k`` there, not Pallas).
 
 Both kernels are ``csrc/wire_compression.cu``, CUDA C++ for ``sm_90a``
-built and bound by ``ops/cuda_build.py``.  Each takes a table of segments,
-so that one launch quantizes or dequantizes a whole model leaf by leaf:
-the blocks restart at every segment, as the JAX package's one
-``pallas_call`` per leaf restarts them (``WireCodec.encode_model`` and
-``decode_model``); the uplink's flat delta is a table of one segment.
-The scales of the segments are packed one after another, ``⌈n/BLOCK⌉``
-per segment of ``n`` values, and only those rows go on the wire.
+built and bound by ``ops/cuda_build.py``.  Each takes segments, so that
+one launch quantizes or dequantizes a whole model leaf by leaf: the blocks
+restart at every segment, as the JAX package's one ``pallas_call`` per
+leaf restarts them (``WireCodec.encode_model`` and ``decode_model``).  The
+scales of the segments are packed one after another, ``⌈n/BLOCK⌉`` per
+segment of ``n`` values, and only those rows go on the wire.  The
+quantize reads its segments from a table on the card.  The dequantize
+takes one of three launch forms (``dequantize_form``; ``DEQUANT_FORMS``
+counts each): ``flat`` for one segment (the uplink, a residual), whose
+offsets are launch arguments; ``by_value`` for up to ``ROWS_CAPACITY``
+scale rows (the broadcast's 287 leaves: 1,902 rows), each row's first
+value packed into the kernel's parameters (``segments_by_value``), so no
+device memory is read ahead of the data;
+and ``table``, the device table, for layouts past that capacity.
 
 Where it runs: a CUDA tensor launches the kernel, or the wrapper raises on
 what the kernel does not take.  CPU tensors take the plain versions,
@@ -37,6 +44,7 @@ import ctypes
 import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -47,6 +55,11 @@ BLOCK = 512
 #: launches it (under ``_count_lock``: the cross-silo plane launches them
 #: from several client threads)
 LAUNCHES = {"quantize": 0, "dequantize": 0}
+#: the dequantize's launches by form (``dequantize_form``)
+DEQUANT_FORMS = {"flat": 0, "by_value": 0, "table": 0}
+#: the most scale rows the dequantize's by-value form takes: one 8 KB
+#: kernel parameter (the broadcast's 1,902 rows on ResNet-56 fit)
+ROWS_CAPACITY = 2048
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -72,13 +85,24 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.fedml_dequantize_int8.argtypes = [vp, vp, vp, i, ll, vp, i,
                                                   vp]
             lib.fedml_dequantize_int8.restype = i
+            lib.fedml_dequantize_int8_flat.argtypes = [vp, vp, ll, ll, vp,
+                                                       i, vp]
+            lib.fedml_dequantize_int8_flat.restype = i
+            lib.fedml_dequantize_int8_rows.argtypes = [vp, vp, vp, ll, vp, i,
+                                                       vp]
+            lib.fedml_dequantize_int8_rows.restype = i
+            lib.fedml_dequantize_rows_capacity.argtypes = []
+            lib.fedml_dequantize_rows_capacity.restype = i
             lib.fedml_wire_block.argtypes = []
             lib.fedml_wire_block.restype = i
             lib.fedml_cuda_error_string.argtypes = [i]
             lib.fedml_cuda_error_string.restype = ctypes.c_char_p
-            if lib.fedml_wire_block() != BLOCK:
-                raise RuntimeError("wire_compression: the kernel's block "
-                                   "differs from the wrapper's")
+            if (lib.fedml_wire_block() != BLOCK
+                    or lib.fedml_dequantize_rows_capacity()
+                    != ROWS_CAPACITY):
+                raise RuntimeError("wire_compression: the kernel's block or "
+                                   "by-value capacity differs from the "
+                                   "wrapper's")
             _lib = lib
         return _lib
 
@@ -128,6 +152,64 @@ def _segment_table(lens: Tuple[int, ...], device: torch.device) -> _Table:
             _tables.pop(next(iter(_tables)))
         _tables[key] = cached
     return cached
+
+
+def segments_by_value(lens: Sequence[int]) -> Optional[np.ndarray]:
+    """The segments ``lens`` packed for the dequantize's by-value form:
+    uint32 ``[R + 1]``, the first value of each of the R scale rows (the
+    blocks restart at every segment) and last the total, so that row r
+    holds values ``start[r] .. start[r + 1] − 1``.  None where the layout
+    passes the kernel's capacity: more than ``ROWS_CAPACITY`` rows, or
+    2^32 values or more."""
+    lens = [int(n) for n in lens]
+    if min(lens, default=0) < 0:
+        raise ValueError(f"segment lengths {lens[:8]}... must be >= 0")
+    if (sum(n_blocks(n) for n in lens) > ROWS_CAPACITY
+            or sum(lens) > 0xFFFFFFFF):
+        return None
+    starts, off = [], 0
+    for n in lens:
+        starts.extend(range(off, off + n, BLOCK))
+        off += n
+    return np.asarray(starts + [off], dtype=np.uint32)
+
+
+class _DequantPlan(NamedTuple):
+    form: str                       # flat, by_value or table
+    rows: int                       # scales in all
+    total: int                      # values in all
+    start: Optional[np.ndarray]     # the by-value packing, else None
+
+
+_dq_plans: Dict[Tuple[int, ...], _DequantPlan] = {}
+
+
+def _dequant_plan(lens: Tuple[int, ...]) -> _DequantPlan:
+    """The dequantize's launch for the segments ``lens``, cached per layout:
+    a model's layout repeats every round, and walking its leaves on the
+    host would cost more than the kernel."""
+    plan = _dq_plans.get(lens)
+    if plan is None:
+        start = None
+        if sum(1 for n in lens if int(n)) == 1:
+            form = "flat"
+        else:
+            start = segments_by_value(lens)
+            form = "table" if start is None else "by_value"
+        plan = _DequantPlan(form, sum(n_blocks(n) for n in lens),
+                            sum(int(n) for n in lens), start)
+        with _lib_lock:
+            if len(_dq_plans) >= _TABLE_CACHE:
+                _dq_plans.pop(next(iter(_dq_plans)))
+            _dq_plans[lens] = plan
+    return plan
+
+
+def dequantize_form(lens: Sequence[int]) -> str:
+    """The dequantize's launch form for the segments ``lens``: ``flat``
+    for one non-empty segment, ``by_value`` up to the kernel's capacity,
+    else ``table``."""
+    return _dequant_plan(tuple(lens)).form
 
 
 def _check_launch(rc: int, lib: ctypes.CDLL, what: str) -> None:
@@ -262,8 +344,8 @@ def dequantize_int8_blocked(q: torch.Tensor, scales: torch.Tensor, d: int,
     if int(d) != q.numel():
         raise ValueError(f"dequantize kernel gives all {q.numel()} values, "
                          f"not {d}")
-    table, n_seg, rows, total = _segment_table(
-        (q.numel(),) if lengths is None else tuple(lengths), dev)
+    lens = (q.numel(),) if lengths is None else tuple(lengths)
+    form, rows, total, start = _dequant_plan(lens)
     if total != q.numel():
         raise ValueError(f"segments of {total} values for {q.numel()} q")
     if rows != scales.numel():
@@ -274,11 +356,24 @@ def dequantize_int8_blocked(q: torch.Tensor, scales: torch.Tensor, d: int,
         return out
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fedml_dequantize_int8(q.data_ptr(), scales.data_ptr(),
-                                   table.data_ptr(), n_seg, rows,
-                                   out.data_ptr(), _device_index(q), stream)
+    if form == "flat":
+        rc = lib.fedml_dequantize_int8_flat(q.data_ptr(), scales.data_ptr(),
+                                            q.numel(), rows, out.data_ptr(),
+                                            _device_index(q), stream)
+    elif form == "by_value":
+        rc = lib.fedml_dequantize_int8_rows(
+            q.data_ptr(), scales.data_ptr(), start.ctypes.data, rows,
+            out.data_ptr(), _device_index(q), stream)
+    else:
+        table, n_seg, _, _ = _segment_table(lens, dev)
+        rc = lib.fedml_dequantize_int8(q.data_ptr(), scales.data_ptr(),
+                                       table.data_ptr(), n_seg, rows,
+                                       out.data_ptr(), _device_index(q),
+                                       stream)
     _check_launch(rc, lib, "dequantize")
-    _count("dequantize")
+    with _count_lock:
+        LAUNCHES["dequantize"] += 1
+        DEQUANT_FORMS[form] += 1
     return out
 
 

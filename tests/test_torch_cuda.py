@@ -545,11 +545,13 @@ def _resnet56_lengths():
 def test_wire_kernels_match_plain_versions_bit_for_bit(d, card):
     x = _wire_vector(d)
     before = dict(wc.LAUNCHES)
+    flat = wc.DEQUANT_FORMS["flat"]
     q, s = wc.quantize_int8_blocked(x.to(card))
     out = wc.dequantize_int8_blocked(q, s, d)
     torch.cuda.synchronize()
     assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
     assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    assert wc.DEQUANT_FORMS["flat"] == flat + 1
     want_q, want_s = wc.quantize_int8_reference(x)
     _bits_equal(q, want_q)
     _bits_equal(s, want_s)
@@ -584,18 +586,31 @@ def test_wire_kernels_keep_nan_and_inf_rows_visible(card):
     _bits_equal(out, wc.dequantize_int8_reference(want_q, want_s, x.numel()))
 
 
+#: segment layouts, and the dequantize's launch form for each: ResNet-56's
+#: 287 leaves (the broadcast) and a ragged table with an empty segment by
+#: value, 2,100 segments of 1 to 3 values (past the by-value capacity of
+#: 2,048 scale rows) through the device table
+SEGMENT_LAYOUTS = {"resnet56_leaves": "by_value", "ragged": "by_value",
+                   "past_capacity": "table"}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["resnet56_leaves", "ragged"])
+@pytest.mark.parametrize("layout", sorted(SEGMENT_LAYOUTS))
 def test_wire_kernels_take_a_segment_table_in_one_launch(layout, card):
-    lengths = (_resnet56_lengths() if layout == "resnet56_leaves"
-               else [700, 3, 0, 512, 1029, 1, 5000])
+    lengths = {"resnet56_leaves": _resnet56_lengths,
+               "ragged": lambda: [700, 3, 0, 512, 1029, 1, 5000],
+               "past_capacity": lambda: [1 + i % 3 for i in range(2100)],
+               }[layout]()
     x = _wire_vector(sum(lengths), seed=1)
     before = dict(wc.LAUNCHES)
+    forms = dict(wc.DEQUANT_FORMS)
     q, s = wc.quantize_int8_blocked(x.to(card), lengths)
     out = wc.dequantize_int8_blocked(q, s, q.numel(), lengths)
     torch.cuda.synchronize()
     assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
     assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    form = SEGMENT_LAYOUTS[layout]
+    assert wc.DEQUANT_FORMS[form] == forms[form] + 1
     want_q, want_s = wc.quantize_int8_blocked(x, lengths)
     _bits_equal(q, want_q)
     _bits_equal(s, want_s)
@@ -1216,7 +1231,9 @@ def test_secagg_round_on_the_card_matches_the_cpu(card):
 #: (M, K, N, x dtype, storage offset of q, extra row stride of x): the
 #: CPU test's [4, 48] @ [48, 700], the GPT-2-small decode widths at M = 1
 #: and 64 (wq, w1 and w2), ragged M, K and N, a misaligned q, a strided x,
-#: and M past one tile row
+#: M past one tile row, M on both sides of the CUDA-core path's limit
+#: (2, 16, 17, 32), K of 48 and 100 on both paths, bf16 x at M 64, and the
+#: x kinds of MM_X_KIND
 MM_CARD_CASES = {
     "jax_test": (4, 48, 700, torch.float32, 0, 0),
     "jax_test_m1_bf16": (1, 48, 700, torch.bfloat16, 0, 0),
@@ -1229,34 +1246,108 @@ MM_CARD_CASES = {
     "misaligned_q": (8, 64, 256, torch.float32, 1, 0),
     "strided_x": (5, 96, 128, torch.float32, 0, 7),
     "m130": (130, 256, 192, torch.float32, 0, 0),
+    "m2": (2, 768, 768, torch.float32, 0, 0),
+    "m16": (16, 768, 768, torch.float32, 0, 0),
+    "m17": (17, 768, 768, torch.float32, 0, 0),
+    "m32": (32, 768, 3072, torch.float32, 0, 0),
+    "k48_m1": (1, 48, 768, torch.float32, 0, 0),
+    "k100_m3": (3, 100, 203, torch.float32, 0, 0),
+    "k100_m64": (64, 100, 768, torch.float32, 0, 0),
+    "bf16_m64": (64, 768, 768, torch.bfloat16, 0, 0),
+    "span_m1": (1, 100, 256, torch.float32, 0, 0),
+    "span_m64": (64, 100, 256, torch.float32, 0, 0),
+    "tiny_m1": (1, 768, 256, torch.float32, 0, 0),
+    "tiny_m64": (64, 768, 256, torch.float32, 0, 0),
+    "nonfinite_m5": (5, 96, 128, torch.float32, 0, 0),
+    "nonfinite_m64": (64, 96, 130, torch.float32, 0, 0),
 }
+#: x other than randn: "span", float32 magnitudes from 1e-40 (subnormal) to
+#: 1e28 with one entry a row at 1e38 to 3.4028235e38 (past bfloat16's
+#: largest value, where bf16(x) rounds to inf), against ternary weights and
+#: scales under 1, so that every sum and output stays finite; "tiny", rows
+#: of float32 magnitudes from 1e-40 to 1e-37 only (where bfloat16 parts of
+#: x would lose bits under bfloat16's least subnormal unless scaled up:
+#: unscaled parts miss the bound there about 9-fold), against int8 weights
+#: with scales near 2^113, so that the outputs lie near 1 and the bound,
+#: not its 1e-30 floor, decides; "nonfinite", randn
+#: with +inf, -inf and NaN entries (a row with both infinities), compared
+#: by the pattern of NaNs and infinities
+MM_X_KIND = {"span_m1": "span", "span_m64": "span",
+             "tiny_m1": "tiny", "tiny_m64": "tiny",
+             "nonfinite_m5": "nonfinite", "nonfinite_m64": "nonfinite"}
+
+
+def _mm_card_inputs(name, card):
+    from fedml_tpu_torch.serving.quantization import quantize_matrix_int8
+
+    m, k, n, dtype, q_off, pad = MM_CARD_CASES[name]
+    kind = MM_X_KIND.get(name, "randn")
+    gen = torch.Generator().manual_seed(sorted(MM_CARD_CASES).index(name))
+    if kind == "span":
+        q = torch.randint(-1, 2, (k, n), generator=gen, dtype=torch.int8)
+        s = torch.rand(n, generator=gen) * 0.5 + 0.25
+        mag = 10.0 ** (torch.rand(m, k + pad, generator=gen,
+                                  dtype=torch.float64) * 68 - 40)
+        sign = torch.randint(0, 2, (m, k + pad), generator=gen) * 2 - 1
+        x = (sign * mag).float()
+        big = torch.tensor([3.4e38, -3.4028235e38, 1e38, -2e38])
+        x[torch.arange(m), torch.arange(m) % k] = big[torch.arange(m) % 4]
+        q, s = q.to(card), s.to(card)
+    elif kind == "tiny":
+        q = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+        s = (torch.rand(n, generator=gen) * 0.5 + 0.5) * 2.0 ** 113
+        mag = 10.0 ** (torch.rand(m, k + pad, generator=gen,
+                                  dtype=torch.float64) * 3 - 40)
+        sign = torch.randint(0, 2, (m, k + pad), generator=gen) * 2 - 1
+        x = (sign * mag).float()
+        q, s = q.to(card), s.to(card)
+    else:
+        qs = quantize_matrix_int8(torch.randn(k, n, generator=gen).to(card)
+                                  * k ** -0.5)
+        q, s = qs["q"], qs["s"]
+        x = torch.randn(m, k + pad, generator=gen)
+        if kind == "nonfinite":
+            inf = float("inf")
+            for r, c, v in ((0, 3, inf), (m - 1, 5, -inf), (m // 2, 7,
+                                                             float("nan")),
+                            (m // 3, 1, inf), (m // 3, 9, -inf)):
+                x[r, c] = v
+    x = x.to(dtype).to(card)[:, :k]
+    return x, _misaligned(q, q_off), s
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(MM_CARD_CASES))
 def test_int8_matmul_kernel_matches_plain_version(name, card_fp32):
     """Within K · 2^-24 · (|x| @ |q|) · s: sums of K float32 products in the
-    kernel's order (split K, each split in order) against cuBLAS's."""
+    kernel's order (K split across a cluster, each split in order, float32
+    x as three exact bf16 parts on the tensor cores) against cuBLAS's; NaN
+    and infinities where the plain version has them; the same bits from
+    call to call."""
     from fedml_tpu_torch.ops import pallas_ops as po
-    from fedml_tpu_torch.serving.quantization import quantize_matrix_int8
 
-    m, k, n, dtype, q_off, pad = MM_CARD_CASES[name]
-    gen = torch.Generator().manual_seed(sorted(MM_CARD_CASES).index(name))
-    qs = quantize_matrix_int8(torch.randn(k, n, generator=gen).to(card_fp32)
-                              * k ** -0.5)
-    q = _misaligned(qs["q"], q_off)
-    x = torch.randn(m, k + pad, generator=gen).to(dtype).to(card_fp32)[:, :k]
+    m, k, n = MM_CARD_CASES[name][:3]
+    x, q, s = _mm_card_inputs(name, card_fp32)
     before = po.LAUNCHES["pallas_ops.int8_matmul"]
-    got = po.int8_matmul(x, q, qs["s"])
+    got = po.int8_matmul(x, q, s)
     torch.cuda.synchronize()
     assert po.LAUNCHES["pallas_ops.int8_matmul"] == before + 1
-    ref = po.int8_matmul_reference(x, q, qs["s"])
+    ref = po.int8_matmul_reference(x, q, s)
     assert got.dtype == torch.float32 and got.shape == (m, n)
-    bound = k * 2.0 ** -24 * po.int8_matmul_reference(
-        x.abs(), q.abs(), qs["s"]) + 1e-30
-    excess = float(((got - ref).abs() - bound).max())
+    if MM_X_KIND.get(name) == "nonfinite":
+        assert torch.equal(got.isnan(), ref.isnan()), f"{name}: NaNs differ"
+        assert torch.equal(got.isinf(), ref.isinf()), f"{name}: infs differ"
+        assert torch.equal(got[got.isinf()], ref[ref.isinf()])
+        assert bool(ref.isnan().any()) and bool(ref.isinf().any())
+    fin = ref.isfinite()
+    assert torch.equal(got.isfinite(), fin), f"{name}: non-finite outputs"
+    if MM_X_KIND.get(name) != "nonfinite":
+        assert bool(fin.all()), f"{name}: the plain version overflowed"
+    bound = k * 2.0 ** -24 * po.int8_matmul_reference(x.abs(), q.abs(), s)
+    excess = float(((got - ref).abs() - bound - 1e-30)[fin].max())
     assert excess <= 0, f"{name}: {excess:.3g} past the bound"
-    assert torch.equal(got, po.int8_matmul(x, q, qs["s"])), \
+    again = po.int8_matmul(x, q, s)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
         f"{name}: differs from run to run"
 
 

@@ -277,6 +277,87 @@ def test_int8_matmul_matches_jax(name):
         < 0.05
 
 
+def _part_values(kind):
+    """float32 values for the tensor-core path's split: seeded magnitudes
+    over the whole normal range, seeded magnitudes below 2^-100 (where
+    unscaled bfloat16 parts would lose bits, subnormals included), or edge
+    values (the largest finite float, values that round past bfloat16's
+    largest, powers of two, halfway cases between bfloat16 neighbours,
+    2^-110, the least normal and subnormal floats, signed zeros)."""
+    if kind in ("seeded", "tiny"):
+        rng = np.random.default_rng(11 if kind == "seeded" else 12)
+        sign = rng.choice([-1.0, 1.0], 200_000)
+        lo, hi = (-110, 127) if kind == "seeded" else (-149, -100)
+        return (sign * rng.uniform(1.0, 2.0, 200_000)
+                * np.exp2(rng.integers(lo, hi, 200_000))).astype(np.float32)
+    f32 = np.finfo(np.float32)
+    bf16_max = float(np.asarray(jnp.asarray(3.0e38, jnp.bfloat16)
+                                .astype(jnp.float32)))
+    edge = [f32.max, -f32.max, 3.4e38, 3.3961e38, bf16_max, 2.0 ** 127,
+            1.0, -1.0, 1.0 + 2.0 ** -8, 1.0 + 2.0 ** -8 + 2.0 ** -23,
+            1.0 - 2.0 ** -24, 2.0 ** -110, -(2.0 ** -110), f32.tiny, 0.0,
+            -0.0, 1.0 + 2.0 ** -16 + 2.0 ** -23, np.pi, -np.e, 2.0 ** -149,
+            -(2.0 ** -149), f32.tiny - 2.0 ** -149, 1e-40, -1e-33,
+            2.0 ** -125 + 2.0 ** -148, (1.0 + 2.0 ** -8) * 2.0 ** -126]
+    return np.asarray(edge, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["seeded", "tiny", "edges"])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_bf16_parts_restore_float32_x_exactly(kind, scaled):
+    """The parts at their scales add up to x, to the bit: scaled, for every
+    finite x; unscaled, for 0 and finite |x| >= 2^-110 (the values of a
+    chunk the kernel does not scale).  Each part is a bfloat16 value and
+    finite; non-finite x is hi alone."""
+    x = _part_values(kind)
+    if not scaled:
+        x = x[(x == 0) | (np.abs(x) >= po.TINY_X)]
+    hi, mid, lo = po.bf16_parts(_t(x), scaled)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    scales = po.PART_SCALES if scaled else (1.0, 1.0, 1.0)
+    parts = [p.float().numpy().astype(np.float64) * sc
+             for p, sc in zip((hi, mid, lo), scales)]
+    np.testing.assert_array_equal(parts[0] + parts[1] + parts[2],
+                                  x.astype(np.float64))
+    assert all(np.isfinite(p).all() for p in parts)
+    # mid and lo sit within one bfloat16 step (2^-7 relative) of the part
+    # above (scaled: where that part is at least 2^-110; below, a part can
+    # be 0 with the next one not), and hi + mid lies between hi and x (no
+    # partial sum passes x)
+    for big, small in ((parts[0], parts[1]), (parts[1], parts[2])):
+        near = np.abs(big) >= (po.TINY_X if scaled else 0.0)
+        assert (np.abs(small[near]) <= np.abs(big[near]) * 2.0 ** -7).all()
+    head = parts[0] + parts[1]
+    xd = x.astype(np.float64)
+    assert (np.minimum(parts[0], xd) <= head).all()
+    assert (head <= np.maximum(parts[0], xd)).all()
+    specials = _t(np.asarray([np.inf, -np.inf, np.nan], np.float32))
+    hi, mid, lo = po.bf16_parts(specials, scaled)
+    assert torch.equal(hi[:2].float(), specials[:2]) and hi[2].isnan()
+    assert not mid.float().any() and not lo.float().any()
+
+
+@pytest.mark.parametrize("name", sorted(MM_CASES))
+def test_bf16_parts_product_matches_jax(name):
+    """The tensor-core path's arithmetic, unscaled and scaled: each bf16
+    part of x times q at the part's scale is exact, so the three parts'
+    products summed give x @ q; held to the JAX kernel at the float32
+    bound of a sum of K terms."""
+    x, w = _mm_inputs(name)
+    qs = jq.quantize_matrix_int8(jnp.asarray(w))
+    want = np.asarray(jpo.int8_matmul(jnp.asarray(x), qs["q"], qs["s"],
+                                      interpret=True))
+    q = np.asarray(qs["q"], np.float64)
+    bound = x.shape[1] * U * (np.abs(x.astype(np.float64)) @ np.abs(q)) \
+        * np.asarray(qs["s"], np.float64)
+    for scaled, scales in ((False, (1.0, 1.0, 1.0)), (True, po.PART_SCALES)):
+        got = sum(p.float().numpy().astype(np.float64) @ (q * sc)
+                  for p, sc in zip(po.bf16_parts(_t(x), scaled), scales))
+        got = (got.astype(np.float32) * np.asarray(qs["s"])
+               ).astype(np.float64)
+        assert (np.abs(got - want) <= bound).all(), scaled
+
+
 # ------------------------------------------------------------ quantization
 def _quant_matrix(shape, seed):
     """A matrix with a zero column (scale 1e-12), a column whose values land

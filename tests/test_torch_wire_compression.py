@@ -203,6 +203,57 @@ def test_segments_restart_the_blocks_like_one_call_per_leaf():
         for a, b in zip(qs, ss)]), "dequantized")
 
 
+#: segment layouts for the dequantize's by-value packing: ResNet-56's 287
+#: leaves (1,902 scale rows), a ragged layout with empty segments, and the
+#: fed-LLM path's rank-4 adapter leaves (A [d_in, 4] and B [4, d_out] of
+#: each of BERT-tiny's five targets)
+BY_VALUE_LAYOUTS = {
+    "resnet56_leaves": None,
+    "ragged": [700, 3, 0, 512, 1029, 1, 0, 5000],
+    "adapters": [n for d_in, d_out in [(128, 90), (128, 512), (512, 128),
+                                       (128, 512), (512, 128)]
+                 for n in (4 * d_in, 4 * d_out)],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(BY_VALUE_LAYOUTS))
+def test_segments_by_value_match_the_segment_table(layout):
+    """The by-value packing gives each scale row the values the device
+    table's segment gives it: row r of segment s starts at in_off + 512 i
+    and ends at the next row's start, the segment's end."""
+    lens = BY_VALUE_LAYOUTS[layout]
+    if lens is None:
+        lens = [t.numel() for t in tree_leaves(tree_from_module(
+            CIFARResNet(depth=56, num_classes=10)))]
+    start = wc.segments_by_value(lens).astype(np.int64)
+    table = wc._segment_table(tuple(lens), torch.device("cpu"))
+    assert start.size == table.rows + 1 and start[-1] == table.total
+    for in_off, n, out_off, row in table.table.numpy():
+        assert in_off == out_off
+        rows = wc.n_blocks(n)
+        np.testing.assert_array_equal(start[row:row + rows],
+                                      in_off + wc.BLOCK * np.arange(rows))
+        assert start[row + rows] == in_off + n
+    assert wc.dequantize_form(lens) == "by_value"
+
+
+@pytest.mark.parametrize("past", ["rows", "values"])
+def test_dequantize_form_switches_at_the_by_value_capacity(past):
+    """One segment is flat; up to the capacity the segments go by value;
+    one scale row more, or 2^32 values, go through the device table."""
+    cap = wc.ROWS_CAPACITY
+    lens = {"rows": [wc.BLOCK] * (cap - 1) + [7],
+            "values": [2 ** 31, 2 ** 31 - 1]}[past]
+    more = {"rows": lens + [1],
+            "values": [2 ** 31, 2 ** 31]}[past]
+    if past == "rows":
+        assert wc.dequantize_form(lens) == "by_value"
+        assert wc.segments_by_value(lens).size == cap + 1
+    assert wc.segments_by_value(more) is None
+    assert wc.dequantize_form(more) == "table"
+    assert wc.dequantize_form([0, sum(more), 0]) == "flat"
+
+
 def test_topk_and_scatter_match_jax():
     x = np.random.default_rng(5).permutation(4000).astype(np.float32)
     x = (x + 1) * np.where(np.arange(4000) % 3, 1, -1).astype(np.float32)
