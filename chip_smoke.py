@@ -288,23 +288,40 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+# torch.profiler keeps a device record only where the record's timestamp
+# falls inside the trace's window on the host's clock, and on the H100
+# machines the two clocks stand apart by an amount that varies from trace
+# to trace, so that a kernel's record can carry a time before the host
+# launched it: records near an edge of the window are lost (a few of a
+# decode step's kernels in some traces, all of them in one run of this
+# script).  Each traced call therefore sits this much host sleep inside
+# its window, and the warm-up call as far outside it.
+TRACE_PAD_S = 0.2
+
+
 def reset_launches():
     for counts in (epilogue.LAUNCHES, epilogue.FOLD_FORMS, attn.LAUNCHES,
-                   wc.LAUNCHES, wc.DEQUANT_FORMS, mcc.LAUNCHES, po.LAUNCHES):
+                   wc.LAUNCHES, wc.QUANT_FORMS, wc.DEQUANT_FORMS,
+                   mcc.LAUNCHES, po.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
     """The launch counts, with ``fused_epilogue`` the sum of its channels,
-    the wire kernels as ``wire_compression.<kernel>`` and the fold's
-    launches by form as ``fold_delta.<form>``."""
+    the wire kernels as ``wire_compression.<kernel>``, and the launches by
+    form of the fold as ``fold_delta.<form>`` and of the wire kernels as
+    ``quantize_form.<form>`` and ``dequantize_form.<form>``."""
     counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES, **mcc.LAUNCHES,
                   **po.LAUNCHES,
                   **{f"wire_compression.{k}": n
                      for k, n in wc.LAUNCHES.items()},
                   **{f"fold_delta.{k}": n
-                     for k, n in epilogue.FOLD_FORMS.items()})
+                     for k, n in epilogue.FOLD_FORMS.items()},
+                  **{f"quantize_form.{k}": n
+                     for k, n in wc.QUANT_FORMS.items()},
+                  **{f"dequantize_form.{k}": n
+                     for k, n in wc.DEQUANT_FORMS.items()})
     counts["fused_epilogue"] = sum(
         n for k, n in counts.items() if k.startswith("fused_epilogue."))
     return counts
@@ -735,12 +752,14 @@ def timing_phase(dev, p_main, d_main, card):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     # plain, kernel, kernel, plain
     plain_ms = _time_ms(lambda: epilogue.weighted_reduce_reference(x, w),
-                        flush)
-    kernel_ms = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush)
-    library_ms = _time_ms(lambda: torch.matmul(wn, x), flush)
-    kernel_ms_2 = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush)
+                        flush, hide=True)
+    kernel_ms = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush,
+                         hide=True)
+    library_ms = _time_ms(lambda: torch.matmul(wn, x), flush, hide=True)
+    kernel_ms_2 = _time_ms(lambda: epilogue.weighted_reduce(x, w), flush,
+                           hide=True)
     plain_ms_2 = _time_ms(lambda: epilogue.weighted_reduce_reference(x, w),
-                          flush)
+                          flush, hide=True)
     nbytes = c * d_main * 4 + d_main * 4 + c * 4
     bound_ms, bound_by = _bound(nbytes, 2 * c * d_main, card)
     out = {"weighted_reduce": dict(
@@ -748,7 +767,8 @@ def timing_phase(dev, p_main, d_main, card):
         plain_ms=statistics.median([plain_ms, plain_ms_2]),
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
     phase(4, "timing", f"weighted_reduce at [10, {d_main}] f32, cold L2, "
-          f"median of 50: kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms, "
+          f"host hidden, median of 50: kernel {kernel_ms:.4f} / "
+          f"{kernel_ms_2:.4f} ms, "
           f"plain {plain_ms:.4f} / {plain_ms_2:.4f} ms, library "
           f"matmul(wn, x) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {nbytes / 1e6:.2f} MB at "
@@ -793,14 +813,14 @@ def timing_phase(dev, p_main, d_main, card):
             library()
             ref, _ = epilogue.fused_epilogue_reference(g, cols, w, 1.0, spec)
             lib_err = _err(lib_res, ref, (1e-5, 1e-5), f"addmv for {opt}")
-            lib_ms = _time_ms(library, flush)
+            lib_ms = _time_ms(library, flush, hide=True)
             lib_note = (f"addmv(g, x.t(), wn, beta={1.0 - a:g}, alpha={a:g})"
                         f" {lib_ms:.4f} ms (vs plain max |err| "
                         f"{lib_err:.2e})")
-        p1 = _time_ms(plain, flush)
-        k1 = _time_ms(kernel, flush)
-        k2 = _time_ms(kernel, flush)
-        p2 = _time_ms(plain, flush)
+        p1 = _time_ms(plain, flush, hide=True)
+        k1 = _time_ms(kernel, flush, hide=True)
+        k2 = _time_ms(kernel, flush, hide=True)
+        p2 = _time_ms(plain, flush, hide=True)
         streams = {"none": 0, "sgd": 0, "momentum": 2, "adam": 4}[opt]
         nbytes = (c + 2 + streams) * p_main * 4 + c * 4
         bound_ms, bound_by = _bound(
@@ -811,7 +831,8 @@ def timing_phase(dev, p_main, d_main, card):
                         bound_by=bound_by)
         phase(4, "timing", f"fused_epilogue.{opt if opt != 'none' else 'mix'}"
               f" at columns [0, {p_main}) of [10, {d_main}] f32, cold L2, "
-              f"median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"host hidden, median of 50: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain "
               f"{p1:.4f} / {p2:.4f} ms, library {lib_note}, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "
               f"{bound_ms / ms:.1%} of the bound")
@@ -970,6 +991,7 @@ def wire_kernel_phase(dev):
         x = _wire_vector(d, gen).to(dev)
         before = dict(wc.LAUNCHES)
         form_before = dict(wc.DEQUANT_FORMS)
+        qform_before = dict(wc.QUANT_FORMS)
         q, s = wc.quantize_int8_blocked(x, lens)
         out = wc.dequantize_int8_blocked(q, s, d, lens)
         torch.cuda.synchronize()
@@ -977,8 +999,9 @@ def wire_kernel_phase(dev):
               and wc.LAUNCHES["dequantize"] == before["dequantize"] + 1,
               f"wire kernels {label}: one launch each, got {wc.LAUNCHES}")
         form = wc.dequantize_form(lens or [d])
-        check(wc.DEQUANT_FORMS[form] == form_before[form] + 1,
-              f"dequantize {label}: not the {form} form")
+        check(wc.DEQUANT_FORMS[form] == form_before[form] + 1
+              and wc.QUANT_FORMS[form] == qform_before[form] + 1,
+              f"wire kernels {label}: not the {form} form")
         forms[form] = forms.get(form, 0) + 1
         want_q, want_s, want = _wire_plain(x, lens)
         errs["wire_compression.quantize"] = max(
@@ -993,7 +1016,7 @@ def wire_kernel_phase(dev):
           f"random, zero, on .5, below 1e-30, above 1e30, negative, with a "
           f"NaN, with +inf and -inf): "
           f"{', '.join(c[0] for c in cases)} ({len(lengths)} segments, D "
-          f"{d_main}), one launch each per call, the dequantize's forms "
+          f"{d_main}), one launch each per call, both kernels' forms "
           f"{forms}; max |err| "
           f"{errs['wire_compression.quantize']:.1e} / "
           f"{errs['wire_compression.dequantize']:.1e} (tolerance: equal "
@@ -1178,11 +1201,12 @@ def wire_timing_phase(dev, card):
              lambda: wc.dequantize_int8_reference(q, s, d),
              lambda: torch.mul(q_rows, s[:, None]),
              d + 4 * rows + 4 * d, d)):
-        p1 = _time_ms(plain, flush)
-        k1 = _time_ms(kernel, flush)
-        lib_ms = _time_ms(library, flush) if library is not None else None
-        k2 = _time_ms(kernel, flush)
-        p2 = _time_ms(plain, flush)
+        p1 = _time_ms(plain, flush, hide=True)
+        k1 = _time_ms(kernel, flush, hide=True)
+        lib_ms = (_time_ms(library, flush, hide=True) if library is not None
+                  else None)
+        k2 = _time_ms(kernel, flush, hide=True)
+        p2 = _time_ms(plain, flush, hide=True)
         bound_ms, bound_by = _bound(nbytes, ops, card)
         ms = statistics.median([k1, k2])
         out[name] = dict(ms=ms, plain_ms=statistics.median([p1, p2]),
@@ -1192,20 +1216,23 @@ def wire_timing_phase(dev, card):
                     if lib_ms is not None else
                     "none (no single PyTorch call derives the scales and "
                     "the rounded values)")
-        phase(4, "timing", f"{name} at D {d} (one segment), cold L2, median "
-              f"of 50: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        phase(4, "timing", f"{name} at D {d} (one segment), cold L2, host "
+              f"hidden, median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p1:.4f} / "
               f"{p2:.4f} ms, library {lib_note}, bound {bound_ms:.5f} ms "
               f"({bound_by}: {nbytes / 1e6:.3f} MB at "
               f"{card_peaks(card)[0] / 1e12:.2f} TB/s) -> "
               f"{bound_ms / ms:.1%} of the bound")
     qs, ss = wc.quantize_int8_blocked(x, lengths)
-    tq = _time_ms(lambda: wc.quantize_int8_blocked(x, lengths), flush)
+    tq = _time_ms(lambda: wc.quantize_int8_blocked(x, lengths), flush,
+                  hide=True)
     td = _time_ms(lambda: wc.dequantize_int8_blocked(qs, ss, d, lengths),
-                  flush)
+                  flush, hide=True)
     phase(4, "timing", f"wire kernels over the broadcast's {len(lengths)} "
-          f"segments ({ss.numel()} scales; the quantize through the device "
-          f"table, the dequantize {wc.dequantize_form(lengths)}), cold L2, "
-          f"median of 50: quantize {tq:.4f} ms, dequantize {td:.4f} ms")
+          f"segments ({ss.numel()} scales; both in the "
+          f"{wc.quantize_form(lengths)} form), cold L2, "
+          f"host hidden, median of 50: quantize {tq:.4f} ms, dequantize "
+          f"{td:.4f} ms")
     return out, codec_host_phase(dev)
 
 
@@ -1776,8 +1803,13 @@ def cross_silo_phase(n, codec_round_s):
             f"{codec}: non-finite global variables")
         want_q = ROUNDS * (SILOS + 1) if wire else 0
         want_d = ROUNDS * (3 * SILOS + 1) if wire else 0
+        # the broadcast's 287 leaves by value, each upload and residual flat
+        want_bv = ROUNDS if wire else 0
         check(launches["wire_compression.quantize"] == want_q
               and launches["wire_compression.dequantize"] == want_d
+              and launches["quantize_form.by_value"] == want_bv
+              and launches["quantize_form.flat"] == want_q - want_bv
+              and launches["dequantize_form.table"] == 0
               and launches["weighted_reduce"] == ROUNDS
               and launches["fused_epilogue"] == 0,
               f"{codec}: {ROUNDS} rounds of {SILOS} silos launched "
@@ -1801,8 +1833,12 @@ def cross_silo_phase(n, codec_round_s):
                           sorted(nbytes.items()))
               + f", peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches quantize {launches['wire_compression.quantize']}, "
-              f"dequantize {launches['wire_compression.dequantize']}, "
+              f"launches quantize {launches['wire_compression.quantize']} "
+              f"(flat {launches['quantize_form.flat']}, by value "
+              f"{launches['quantize_form.by_value']}), "
+              f"dequantize {launches['wire_compression.dequantize']} (flat "
+              f"{launches['dequantize_form.flat']}, by value "
+              f"{launches['dequantize_form.by_value']}), "
               f"weighted_reduce {launches['weighted_reduce']}, data "
               f"{t_data:.1f} s, whole run {total:.1f} s")
         runner = bundle = server = None
@@ -1984,9 +2020,12 @@ def trace_phase(n, what, one_client_round, nb, batch=32):
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    time.sleep(TRACE_PAD_S)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         run()
+        time.sleep(TRACE_PAD_S)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         phase(n, "trace", "the profiler recorded no device activity: "
@@ -2318,10 +2357,13 @@ def _busy_ms(fn):
 
     fn()
     torch.cuda.synchronize()
+    time.sleep(TRACE_PAD_S)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(kernels, "the profiler recorded no device activity")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -2607,9 +2649,9 @@ def int8_bound(nbytes, flops, m, card, dev):
 
 def _device_kernels(fn):
     """The names of the device activities ``torch.profiler`` records over
-    one call of ``fn``, the profiler's second step: its first, a warm-up
-    call, absorbs the activities a trace loses as it starts (two of a
-    decode step's 72 kernels on the H100).  Fails where it records none:
+    one call of ``fn``, the profiler's second step, ``TRACE_PAD_S`` from
+    either edge of its window: its first, a warm-up call, absorbs the
+    activities a trace loses as it starts.  Fails where it records none:
     the count is what the phase checks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2619,9 +2661,12 @@ def _device_kernels(fn):
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
         prof.step()
+        time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     kernels = [e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith("ProfilerStep")]
@@ -2737,11 +2782,16 @@ def po_timing_phase(dev, card):
     w = torch.randint(100, 900, (c,), generator=gen, device=dev,
                       dtype=torch.int32)
     wn = po.normalized_weights(w)
-    p1 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush)
-    k1 = _time_ms(lambda: po.weighted_average_flat(x, w), flush)
-    lib = _time_ms(lambda: torch.matmul(wn[None], x), flush)
-    k2 = _time_ms(lambda: po.weighted_average_flat(x, w), flush)
-    p2 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush)
+    p1 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush,
+                  hide=True)
+    k1 = _time_ms(lambda: po.weighted_average_flat(x, w), flush,
+                  hide=True)
+    lib = _time_ms(lambda: torch.matmul(wn[None], x), flush,
+                  hide=True)
+    k2 = _time_ms(lambda: po.weighted_average_flat(x, w), flush,
+                  hide=True)
+    p2 = _time_ms(lambda: po.weighted_average_flat_reference(x, w), flush,
+                  hide=True)
     nbytes = (c + 1) * d * 4 + c * 4
     bound_ms, bound_by = _bound(nbytes, 2 * c * d, card)
     ms = statistics.median([k1, k2])
@@ -2749,7 +2799,8 @@ def po_timing_phase(dev, card):
         ms=ms, plain_ms=statistics.median([p1, p2]), library_ms=lib,
         bound_ms=bound_ms, bound_by=bound_by)
     phase(4, "timing", f"pallas_ops.weighted_average at [10, {d}] f32, int32 "
-          f"weights, cold L2, median of 50: kernel {k1:.4f} / {k2:.4f} ms, "
+          f"weights, cold L2, host hidden, median of 50: kernel {k1:.4f} / "
+          f"{k2:.4f} ms, "
           f"plain {p1:.4f} / {p2:.4f} ms, library matmul(wn[None], x) "
           f"{lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.2f} MB) -> {bound_ms / ms:.1%} of the bound")
@@ -2757,10 +2808,14 @@ def po_timing_phase(dev, card):
     xq = torch.randn(d, generator=gen, device=dev) * 0.01
     mq = torch.randint(-2 ** 31, 2 ** 31, (d,), generator=gen, device=dev,
                        dtype=torch.int32)
-    p1 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush)
-    k1 = _time_ms(lambda: po.quantize_mask(xq, mq), flush)
-    k2 = _time_ms(lambda: po.quantize_mask(xq, mq), flush)
-    p2 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush)
+    p1 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush,
+                  hide=True)
+    k1 = _time_ms(lambda: po.quantize_mask(xq, mq), flush,
+                  hide=True)
+    k2 = _time_ms(lambda: po.quantize_mask(xq, mq), flush,
+                  hide=True)
+    p2 = _time_ms(lambda: po.quantize_mask_reference(xq, mq), flush,
+                  hide=True)
     nbytes = 12 * d
     bound_ms, bound_by = _bound(nbytes, 3 * d, card)
     ms = statistics.median([k1, k2])
@@ -2768,7 +2823,8 @@ def po_timing_phase(dev, card):
         ms=ms, plain_ms=statistics.median([p1, p2]), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by)
     phase(4, "timing", f"pallas_ops.quantize_mask at D {d} f32, cold L2, "
-          f"median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+          f"host hidden, median of 50: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.4f} / "
           f"{p2:.4f} ms, library none (no single PyTorch call rounds to "
           f"int32 with saturation and adds modulo 2^32), bound "
           f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "

@@ -35,23 +35,24 @@
 // ahead of the data, costs more than the traffic.
 //
 // What the designs do about it.  Both: one launch for a whole model, no
-// intermediate buffer, each value read once and written once.  The
-// quantize (_quant_kernel's port, unchanged since it was first written):
-// one block of 128 threads per 512-value row, 4 neighbouring values a
-// thread (16-byte loads where the row is full and aligned), the row's
-// max-abs by warp shuffles and 4 words of shared memory; each block finds
-// its segment by a binary search over an int64 [S, 4] table on the card
-// (row: in_off, len, out_off, row_off).  The dequantize (_dequant_kernel's
-// port) reads nothing ahead of its data but the scale: a block of 128
-// threads a row, 4 values a thread (one 4-byte load, one float4 store), in
-// one of three launch forms.  One segment (the uplink, each error-feedback
-// residual): its offsets are launch arguments.  Up to 2,048 scale rows
-// (the broadcast's 287 leaves, 1,902 rows; the adapter leaves of the
-// fed-LLM path): each row's first value by value in a __grid_constant__
-// parameter of 8 KB, 4 bytes a row; a row reads its two words from the
-// constant bank.  A layout past that capacity: the device table, as the
-// quantize reads it.
-//
+// intermediate buffer, each value read once and written once, and nothing
+// read ahead of the data but what the row needs, in one of three launch
+// forms.  One segment (the uplink, each error-feedback residual, a fed-LLM
+// upload): its offsets are launch arguments.  Up to 2,048 scale rows (the
+// broadcast's 287 leaves, 1,902 rows; the adapter leaves of the fed-LLM
+// path): each row's first value by value in a __grid_constant__ parameter
+// of 8 KB, 4 bytes a row; a row reads its two words from the constant bank.
+// A layout past that capacity: an int64 [S, 4] table on the card (row:
+// in_off, len, out_off, row_off), binary-searched per row (find_segment).
+// The quantize (_quant_kernel's port): a warp a row, several rows a block,
+// 16 values a lane as four 16-byte loads where the row is full and aligned;
+// the row's max-abs is an integer max of the values' bits with the sign
+// cleared, which orders NaN above inf above every finite value as jnp.max
+// keeps them, and needs shuffles only: no shared memory, no barrier.  The
+// dequantize (_dequant_kernel's port) reads nothing ahead of its data but
+// the scale: a block of 128 threads a row, 4 values a thread (one 4-byte
+// load, one float4 store).
+
 // Plain C interface for ctypes.  The launch goes on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 
@@ -63,8 +64,6 @@ namespace {
 
 constexpr int kBlock = 512;
 constexpr int kThreads = 128;
-constexpr int kVec = kBlock / kThreads;   // 4 values per thread
-constexpr int kWarps = kThreads / 32;
 
 struct Segment {
   int64_t in_off, len, out_off, row_off;
@@ -86,71 +85,94 @@ __device__ __forceinline__ Segment find_segment(const int64_t* __restrict__ tabl
                  table[4 * lo + 3]};
 }
 
-// max(a, b) that keeps a NaN of either side, as jnp.max and torch.amax
-// do; fmaxf drops it.
-__device__ __forceinline__ float max_keep_nan(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-
 __device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, const int64_t* __restrict__ table,
-                int n_seg, int8_t* __restrict__ q, float* __restrict__ scales) {
-  __shared__ float warp_max[kWarps];
-  const int64_t row = blockIdx.x;
-  const Segment s = find_segment(table, n_seg, row);
-  const int64_t start = (row - s.row_off) * kBlock;
-  const int64_t left = s.len - start;
-  const int n = left < kBlock ? static_cast<int>(left) : kBlock;
-  const float* src = x + s.in_off + start;
-  int8_t* dst = q + s.out_off + start;
-  const int base = threadIdx.x * kVec;
+// The quantize: a warp a row, kQVec values a lane, and kQRows rows a
+// block (profile_streaming.py --qrows times others as builds).
+constexpr int kQVec = kBlock / 32;             // values a lane
+constexpr int kQRows = 4;
+constexpr int kQThreads = kQRows * 32;         // threads a block
+static_assert(kQThreads <= 1024, "the quantize's rows");
 
-  float v[kVec];
-  const bool full = n == kBlock;
-  if (full && aligned(src, 16)) {
-    const float4 f = reinterpret_cast<const float4*>(src)[threadIdx.x];
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  } else {
+// scale = max|x| / 127 and q for the n <= 512 values of one row, by the
+// warp of the row (`lane` 0 .. 31).  Lane `lane` takes the float4s lane,
+// lane + 32, ... of the row, so every warp load covers 512 neighbouring
+// bytes.
+__device__ __forceinline__ void quant_row(const float* __restrict__ src,
+                                          int8_t* __restrict__ dst, int n,
+                                          float* __restrict__ scale_out,
+                                          int lane) {
+  constexpr int kLoads = kQVec / 4;
+  float v[kQVec];
+  const bool fast = n == kBlock && aligned(src, 16);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) v[i] = base + i < n ? src[base + i] : 0.f;
+  for (int k = 0; k < kLoads; ++k) {
+    const int at = lane + k * 32;
+    if (fast) {
+      const float4 f = reinterpret_cast<const float4*>(src)[at];
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[4 * k + i] = 4 * at + i < n ? src[4 * at + i] : 0.f;
+      }
+    }
   }
 
-  float m = 0.f;
+  // |x| as bits: NaN (exponent all ones, a payload) > inf > finite, and
+  // the padding's 0 below all, so the row's max keeps a NaN or an inf
+  unsigned bits = 0u;
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) m = max_keep_nan(m, fabsf(v[i]));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m = max_keep_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+  for (int i = 0; i < kQVec; ++i) {
+    bits = max(bits, __float_as_uint(v[i]) & 0x7fffffffu);
   }
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float amax = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) amax = max_keep_nan(amax, warp_max[w]);
+  bits = __reduce_max_sync(0xffffffffu, bits);
 
-  const float scale = __fdiv_rn(amax, 127.0f);
+  const float scale = __fdiv_rn(__uint_as_float(bits), 127.0f);
   const float inv = scale > 0.f ? __fdiv_rn(1.0f, fmaxf(scale, 1e-30f)) : 0.f;
-  int8_t out[kVec];
+  int8_t out[kQVec];
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
+  for (int i = 0; i < kQVec; ++i) {
     const float r = rintf(__fmul_rn(v[i], inv));   // NaN: inf * 0, NaN * 0
     out[i] = r != r ? int8_t{0}
                     : static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
   }
-  if (full && aligned(dst, 4)) {
-    reinterpret_cast<char4*>(dst)[threadIdx.x] =
-        make_char4(out[0], out[1], out[2], out[3]);
-  } else {
+  const bool fast_out = n == kBlock && aligned(dst, 4);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      if (base + i < n) dst[base + i] = out[i];
+  for (int k = 0; k < kLoads; ++k) {
+    const int at = lane + k * 32;
+    if (fast_out) {
+      reinterpret_cast<char4*>(dst)[at] = make_char4(
+          out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (4 * at + i < n) dst[4 * at + i] = out[4 * k + i];
+      }
     }
   }
-  if (threadIdx.x == 0) scales[row] = scale;
+  if (lane == 0) *scale_out = scale;
+}
+
+// One segment: row r holds values 512 r .., whose offsets are launch
+// arguments.  Nothing is read ahead of the data.
+__global__ void __launch_bounds__(kQThreads)
+quantize_flat_kernel(const float* __restrict__ x, int64_t total,
+                     int64_t n_rows, int8_t* __restrict__ q,
+                     float* __restrict__ scales) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kQRows +
+                      threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int64_t start = row * kBlock;
+  const int64_t left = total - start;
+  quant_row(x + start, q + start, left < kBlock ? static_cast<int>(left)
+                                                : kBlock,
+            scales + row, threadIdx.x % 32);
 }
 
 // The dequantize: a warp or a block per row, kDqVec values a thread (4:
@@ -249,7 +271,7 @@ dequantize_rows_kernel(const int8_t* __restrict__ q,
 }
 
 // A layout past the by-value capacity: the int64 [S, 4] table on the card,
-// searched per row (find_segment), as the quantize does.
+// searched per row (find_segment).
 __global__ void __launch_bounds__(kThreads)
 dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
                   const int64_t* __restrict__ table, int n_seg, int64_t n_rows,
@@ -263,6 +285,36 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales
   dequant_row(q + s.in_off + start, out + s.out_off + start,
               left < kBlock ? static_cast<int>(left) : kBlock, scales[row],
               threadIdx.x % kDqTpr);
+}
+
+// The quantize's other two forms.  By value, as the dequantize's: row r
+// holds values start[r] .. start[r + 1] - 1, read from the constant bank.
+__global__ void __launch_bounds__(kQThreads)
+quantize_rows_kernel(const float* __restrict__ x, int n_rows,
+                     int8_t* __restrict__ q, float* __restrict__ scales,
+                     const __grid_constant__ RowsByValue rows) {
+  const int row = blockIdx.x * kQRows + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int64_t start = rows.start[row];
+  quant_row(x + start, q + start,
+            static_cast<int>(rows.start[row + 1] - rows.start[row]),
+            scales + row, threadIdx.x % 32);
+}
+
+// Past the by-value capacity: the device table, searched per row.
+__global__ void __launch_bounds__(kQThreads)
+quantize_kernel(const float* __restrict__ x, const int64_t* __restrict__ table,
+                int n_seg, int64_t n_rows, int8_t* __restrict__ q,
+                float* __restrict__ scales) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kQRows +
+                      threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const Segment s = find_segment(table, n_seg, row);
+  const int64_t start = (row - s.row_off) * kBlock;
+  const int64_t left = s.len - start;
+  quant_row(x + s.in_off + start, q + s.out_off + start,
+            left < kBlock ? static_cast<int>(left) : kBlock, scales + row,
+            threadIdx.x % 32);
 }
 
 // The launch's checks: a grid of n_rows blocks fits, and the device is set.
@@ -284,15 +336,49 @@ const char* fedml_cuda_error_string(int code) {
 }
 
 // x: float32 values; table: int64 [n_seg, 4] on the card; n_rows blocks of
-// 512 in all; q: int8, as long as x; scales: float32 [n_rows].
+// 512 in all; q: int8, as long as x; scales: float32 [n_rows].  For layouts
+// past the by-value capacity.
 int fedml_quantize_int8(const float* x, const int64_t* table, int n_seg,
                         long long n_rows, int8_t* q, float* scales, int device,
                         void* stream) {
   const int err = prepare(n_seg, n_rows, device);
   if (err != 0) return err;
-  quantize_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, table, n_seg, q,
-                                                         scales);
+  quantize_kernel<<<static_cast<unsigned>((n_rows + kQRows - 1) / kQRows),
+                    kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, table, n_seg, n_rows, q, scales);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One segment of `total` values from 0: n_rows = ceil(total / 512) scales.
+int fedml_quantize_int8_flat(const float* x, long long total,
+                             long long n_rows, int8_t* q, float* scales,
+                             int device, void* stream) {
+  const int err = prepare(1, n_rows, device);
+  if (err != 0) return err;
+  if (total < 1 || (total + kBlock - 1) / kBlock != n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  quantize_flat_kernel<<<static_cast<unsigned>((n_rows + kQRows - 1) /
+                                               kQRows),
+                         kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, total, n_rows, q, scales);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// By value: start as for fedml_dequantize_int8_rows; n_rows <=
+// kRowsCapacity.
+int fedml_quantize_int8_rows(const float* x, const uint32_t* start,
+                             long long n_rows, int8_t* q, float* scales,
+                             int device, void* stream) {
+  const int err = prepare(1, n_rows, device);
+  if (err != 0) return err;
+  if (n_rows > kRowsCapacity) return static_cast<int>(cudaErrorInvalidValue);
+  RowsByValue rows;
+  memcpy(rows.start, start, sizeof(uint32_t) * (n_rows + 1));
+  quantize_rows_kernel
+      <<<static_cast<unsigned>((n_rows + kQRows - 1) / kQRows), kQThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(x, static_cast<int>(n_rows), q,
+                                              scales, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

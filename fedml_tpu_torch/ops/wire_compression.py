@@ -18,15 +18,15 @@ one launch quantizes or dequantizes a whole model leaf by leaf: the blocks
 restart at every segment, as the JAX package's one ``pallas_call`` per
 leaf restarts them (``WireCodec.encode_model`` and ``decode_model``).  The
 scales of the segments are packed one after another, ``⌈n/BLOCK⌉`` per
-segment of ``n`` values, and only those rows go on the wire.  The
-quantize reads its segments from a table on the card.  The dequantize
-takes one of three launch forms (``dequantize_form``; ``DEQUANT_FORMS``
-counts each): ``flat`` for one segment (the uplink, a residual), whose
-offsets are launch arguments; ``by_value`` for up to ``ROWS_CAPACITY``
-scale rows (the broadcast's 287 leaves: 1,902 rows), each row's first
-value packed into the kernel's parameters (``segments_by_value``), so no
-device memory is read ahead of the data;
-and ``table``, the device table, for layouts past that capacity.
+segment of ``n`` values, and only those rows go on the wire.  Both take
+one of three launch forms, the same for a layout (``quantize_form`` and
+``dequantize_form``; ``QUANT_FORMS`` and ``DEQUANT_FORMS`` count each):
+``flat`` for one segment (the uplink, a residual), whose offsets are
+launch arguments; ``by_value`` for up to ``ROWS_CAPACITY`` scale rows (the
+broadcast's 287 leaves: 1,902 rows), each row's first value packed into
+the kernel's parameters (``segments_by_value``), so no device memory is
+read ahead of the data; and ``table``, the device table, for layouts past
+that capacity.
 
 Where it runs: a CUDA tensor launches the kernel, or the wrapper raises on
 what the kernel does not take.  CPU tensors take the plain versions,
@@ -55,10 +55,12 @@ BLOCK = 512
 #: launches it (under ``_count_lock``: the cross-silo plane launches them
 #: from several client threads)
 LAUNCHES = {"quantize": 0, "dequantize": 0}
-#: the dequantize's launches by form (``dequantize_form``)
+#: the quantize's and the dequantize's launches by form (``quantize_form``,
+#: ``dequantize_form``)
+QUANT_FORMS = {"flat": 0, "by_value": 0, "table": 0}
 DEQUANT_FORMS = {"flat": 0, "by_value": 0, "table": 0}
-#: the most scale rows the dequantize's by-value form takes: one 8 KB
-#: kernel parameter (the broadcast's 1,902 rows on ResNet-56 fit)
+#: the most scale rows the by-value form takes: one 8 KB kernel parameter
+#: (the broadcast's 1,902 rows on ResNet-56 fit)
 ROWS_CAPACITY = 2048
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
@@ -69,11 +71,6 @@ _tables: Dict[Tuple[str, Tuple[int, ...]], "_Table"] = {}
 _TABLE_CACHE = 64
 
 
-def _count(name: str) -> None:
-    with _count_lock:
-        LAUNCHES[name] += 1
-
-
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
@@ -82,6 +79,12 @@ def _kernel_lib() -> ctypes.CDLL:
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.fedml_quantize_int8.argtypes = [vp, vp, i, ll, vp, vp, i, vp]
             lib.fedml_quantize_int8.restype = i
+            lib.fedml_quantize_int8_flat.argtypes = [vp, ll, ll, vp, vp, i,
+                                                     vp]
+            lib.fedml_quantize_int8_flat.restype = i
+            lib.fedml_quantize_int8_rows.argtypes = [vp, vp, ll, vp, vp, i,
+                                                     vp]
+            lib.fedml_quantize_int8_rows.restype = i
             lib.fedml_dequantize_int8.argtypes = [vp, vp, vp, i, ll, vp, i,
                                                   vp]
             lib.fedml_dequantize_int8.restype = i
@@ -174,42 +177,48 @@ def segments_by_value(lens: Sequence[int]) -> Optional[np.ndarray]:
     return np.asarray(starts + [off], dtype=np.uint32)
 
 
-class _DequantPlan(NamedTuple):
+class _WirePlan(NamedTuple):
     form: str                       # flat, by_value or table
     rows: int                       # scales in all
     total: int                      # values in all
     start: Optional[np.ndarray]     # the by-value packing, else None
 
 
-_dq_plans: Dict[Tuple[int, ...], _DequantPlan] = {}
+_wire_plans: Dict[Tuple[int, ...], _WirePlan] = {}
 
 
-def _dequant_plan(lens: Tuple[int, ...]) -> _DequantPlan:
-    """The dequantize's launch for the segments ``lens``, cached per layout:
-    a model's layout repeats every round, and walking its leaves on the
-    host would cost more than the kernel."""
-    plan = _dq_plans.get(lens)
+def _wire_plan(lens: Tuple[int, ...]) -> _WirePlan:
+    """The launch of either wire kernel for the segments ``lens``, cached
+    per layout: a model's layout repeats every round, and walking its
+    leaves on the host would cost more than the kernel."""
+    plan = _wire_plans.get(lens)
     if plan is None:
+        if min(lens, default=0) < 0:
+            raise ValueError(f"segment lengths {lens[:8]}... must be >= 0")
         start = None
         if sum(1 for n in lens if int(n)) == 1:
             form = "flat"
         else:
             start = segments_by_value(lens)
             form = "table" if start is None else "by_value"
-        plan = _DequantPlan(form, sum(n_blocks(n) for n in lens),
-                            sum(int(n) for n in lens), start)
+        plan = _WirePlan(form, sum(n_blocks(n) for n in lens),
+                         sum(int(n) for n in lens), start)
         with _lib_lock:
-            if len(_dq_plans) >= _TABLE_CACHE:
-                _dq_plans.pop(next(iter(_dq_plans)))
-            _dq_plans[lens] = plan
+            if len(_wire_plans) >= _TABLE_CACHE:
+                _wire_plans.pop(next(iter(_wire_plans)))
+            _wire_plans[lens] = plan
     return plan
 
 
 def dequantize_form(lens: Sequence[int]) -> str:
-    """The dequantize's launch form for the segments ``lens``: ``flat``
-    for one non-empty segment, ``by_value`` up to the kernel's capacity,
-    else ``table``."""
-    return _dequant_plan(tuple(lens)).form
+    """The launch form of either wire kernel for the segments ``lens``:
+    ``flat`` for one non-empty segment, ``by_value`` up to the kernels'
+    capacity, else ``table``."""
+    return _wire_plan(tuple(lens)).form
+
+
+#: the quantize takes the dequantize's launch form for a layout
+quantize_form = dequantize_form
 
 
 def _check_launch(rc: int, lib: ctypes.CDLL, what: str) -> None:
@@ -289,8 +298,8 @@ def quantize_int8_blocked(flat: torch.Tensor,
     if flat.dtype != torch.float32 or not flat.is_contiguous():
         raise TypeError(f"quantize kernel takes a contiguous float32 vector, "
                         f"not {flat.dtype} with strides {flat.stride()}")
-    table, n_seg, rows, total = _segment_table(
-        (flat.numel(),) if lengths is None else tuple(lengths), flat.device)
+    lens = (flat.numel(),) if lengths is None else tuple(lengths)
+    form, rows, total, start = _wire_plan(lens)
     if total != flat.numel():
         raise ValueError(f"segments of {total} values for a vector of "
                          f"{flat.numel()}")
@@ -300,11 +309,24 @@ def quantize_int8_blocked(flat: torch.Tensor,
         return q, scales
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(flat.device).cuda_stream
-    rc = lib.fedml_quantize_int8(flat.data_ptr(), table.data_ptr(), n_seg,
-                                 rows, q.data_ptr(), scales.data_ptr(),
-                                 _device_index(flat), stream)
+    dev = _device_index(flat)
+    if form == "flat":
+        rc = lib.fedml_quantize_int8_flat(flat.data_ptr(), total, rows,
+                                          q.data_ptr(), scales.data_ptr(),
+                                          dev, stream)
+    elif form == "by_value":
+        rc = lib.fedml_quantize_int8_rows(flat.data_ptr(), start.ctypes.data,
+                                          rows, q.data_ptr(),
+                                          scales.data_ptr(), dev, stream)
+    else:
+        table = _segment_table(lens, flat.device)
+        rc = lib.fedml_quantize_int8(flat.data_ptr(), table.table.data_ptr(),
+                                     table.n_seg, rows, q.data_ptr(),
+                                     scales.data_ptr(), dev, stream)
     _check_launch(rc, lib, "quantize")
-    _count("quantize")
+    with _count_lock:
+        LAUNCHES["quantize"] += 1
+        QUANT_FORMS[form] += 1
     return q, scales
 
 
@@ -345,7 +367,7 @@ def dequantize_int8_blocked(q: torch.Tensor, scales: torch.Tensor, d: int,
         raise ValueError(f"dequantize kernel gives all {q.numel()} values, "
                          f"not {d}")
     lens = (q.numel(),) if lengths is None else tuple(lengths)
-    form, rows, total, start = _dequant_plan(lens)
+    form, rows, total, start = _wire_plan(lens)
     if total != q.numel():
         raise ValueError(f"segments of {total} values for {q.numel()} q")
     if rows != scales.numel():

@@ -546,12 +546,14 @@ def test_wire_kernels_match_plain_versions_bit_for_bit(d, card):
     x = _wire_vector(d)
     before = dict(wc.LAUNCHES)
     flat = wc.DEQUANT_FORMS["flat"]
+    qflat = wc.QUANT_FORMS["flat"]
     q, s = wc.quantize_int8_blocked(x.to(card))
     out = wc.dequantize_int8_blocked(q, s, d)
     torch.cuda.synchronize()
     assert wc.LAUNCHES["quantize"] == before["quantize"] + 1
     assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
     assert wc.DEQUANT_FORMS["flat"] == flat + 1
+    assert wc.QUANT_FORMS["flat"] == qflat + 1
     want_q, want_s = wc.quantize_int8_reference(x)
     _bits_equal(q, want_q)
     _bits_equal(s, want_s)
@@ -604,6 +606,7 @@ def test_wire_kernels_take_a_segment_table_in_one_launch(layout, card):
     x = _wire_vector(sum(lengths), seed=1)
     before = dict(wc.LAUNCHES)
     forms = dict(wc.DEQUANT_FORMS)
+    qforms = dict(wc.QUANT_FORMS)
     q, s = wc.quantize_int8_blocked(x.to(card), lengths)
     out = wc.dequantize_int8_blocked(q, s, q.numel(), lengths)
     torch.cuda.synchronize()
@@ -611,6 +614,7 @@ def test_wire_kernels_take_a_segment_table_in_one_launch(layout, card):
     assert wc.LAUNCHES["dequantize"] == before["dequantize"] + 1
     form = SEGMENT_LAYOUTS[layout]
     assert wc.DEQUANT_FORMS[form] == forms[form] + 1
+    assert wc.QUANT_FORMS[form] == qforms[form] + 1
     want_q, want_s = wc.quantize_int8_blocked(x, lengths)
     _bits_equal(q, want_q)
     _bits_equal(s, want_s)
@@ -635,6 +639,58 @@ def test_wire_kernels_take_rows_that_are_not_aligned(card):
     _bits_equal(s, want_s)
     _bits_equal(out, wc.dequantize_int8_reference(want_q, want_s,
                                                   x.numel()))
+
+
+#: the quantize's three launch forms over segments whose rows hold a NaN,
+#: +inf, -inf, or a NaN and +inf: one segment (flat), segments by value,
+#: and past the by-value capacity (the device table)
+NON_FINITE_LAYOUTS = {"flat": None, "by_value": [700, 3, 0, 512, 1029, 4],
+                      "table": [1 + i % 3 for i in range(2100)] + [2048]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(NON_FINITE_LAYOUTS))
+def test_quantize_forms_keep_nan_and_inf_rows_visible(form, card):
+    """Every launch form of the quantize: a row with a NaN has a NaN scale,
+    one with an infinity an inf scale, q 0 in both, as the plain version
+    gives them; the integer max of |x|'s bits orders NaN above inf."""
+    lengths = NON_FINITE_LAYOUTS[form]
+    d = sum(lengths) if lengths else 4 * wc.BLOCK
+    x = torch.randn(d, generator=torch.Generator().manual_seed(13))
+    last = d - 2048 if form == "table" else 0    # the last segment's rows
+    for r, kinds in enumerate(("nan", "inf", "-inf", "nan inf")):
+        at = last + r * wc.BLOCK + 5 if form != "by_value" else [
+            1, 704, 1216, 1800][r]
+        for i, kind in enumerate(kinds.split()):
+            x[at + i] = float(kind)
+    forms = dict(wc.QUANT_FORMS)
+    q, s = wc.quantize_int8_blocked(x.to(card), lengths)
+    torch.cuda.synchronize()
+    assert wc.QUANT_FORMS[form] == forms[form] + 1
+    want_q, want_s = wc.quantize_int8_blocked(x, lengths)
+    assert bool(want_s.isnan().any()) and bool(want_s.isinf().any())
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["by_value", "table"])
+def test_quantize_forms_take_rows_that_are_not_aligned(form, card):
+    """Segments over a vector that starts 4 bytes into its buffer, in the
+    by-value and the table forms: no row is 16-byte aligned, every row
+    takes the masked scalar loads."""
+    lengths = {"by_value": [700, 3, 0, 512, 1029, 1, 5000],
+               "table": [1 + i % 3 for i in range(2100)] + [1537]}[form]
+    x = _wire_vector(sum(lengths), seed=4)
+    base = torch.zeros(x.numel() + 1, device=card)
+    base[1:] = x.to(card)
+    forms = dict(wc.QUANT_FORMS)
+    q, s = wc.quantize_int8_blocked(base[1:], lengths)
+    torch.cuda.synchronize()
+    assert wc.QUANT_FORMS[form] == forms[form] + 1
+    want_q, want_s = wc.quantize_int8_blocked(x, lengths)
+    _bits_equal(q, want_q)
+    _bits_equal(s, want_s)
 
 
 @pytest.mark.gpu

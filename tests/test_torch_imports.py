@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``fedml_tpu_torch`` and no line of
 ``chip_smoke.py``, ``profile_cross_silo.py``, ``profile_flash.py``,
-``profile_fold.py``, ``profile_int8.py`` or ``profile_mc_conv.py`` imports
-JAX, flax, optax or the JAX package —
+``profile_fold.py``, ``profile_int8.py``, ``profile_mc_conv.py`` or
+``profile_streaming.py`` imports JAX, flax, optax or the JAX package —
 checked on the source, so a lazy import inside a function counts too."""
 
 import ast
@@ -14,7 +14,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fedml_tpu"}
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in
                  (REPO / "fedml_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "profile_cross_silo.py", "profile_flash.py",
-    "profile_fold.py", "profile_int8.py", "profile_mc_conv.py"]
+    "profile_fold.py", "profile_int8.py", "profile_mc_conv.py",
+    "profile_streaming.py"]
 
 
 def _imported_roots(tree):

@@ -203,7 +203,7 @@ def test_segments_restart_the_blocks_like_one_call_per_leaf():
         for a, b in zip(qs, ss)]), "dequantized")
 
 
-#: segment layouts for the dequantize's by-value packing: ResNet-56's 287
+#: segment layouts for the wire kernels' by-value packing: ResNet-56's 287
 #: leaves (1,902 scale rows), a ragged layout with empty segments, and the
 #: fed-LLM path's rank-4 adapter leaves (A [d_in, 4] and B [4, d_out] of
 #: each of BERT-tiny's five targets)
@@ -215,13 +215,27 @@ BY_VALUE_LAYOUTS = {
                  for n in (4 * d_in, 4 * d_out)],
 }
 
+#: layouts of one non-empty segment, which the wire kernels take flat:
+#: part of a row, whole rows, alone or among empty segments
+FLAT_LAYOUTS = {
+    "one_segment": [5000],
+    "one_among_empty": [0, 5000, 0],
+    "one_full_row": [512],
+    "one_value": [1],
+    "two_rows_then_empty": [1024, 0],
+}
 
-@pytest.mark.parametrize("layout", sorted(BY_VALUE_LAYOUTS))
+
+@pytest.mark.parametrize("layout",
+                         sorted(BY_VALUE_LAYOUTS) + sorted(FLAT_LAYOUTS))
 def test_segments_by_value_match_the_segment_table(layout):
     """The by-value packing gives each scale row the values the device
     table's segment gives it: row r of segment s starts at in_off + 512 i
-    and ends at the next row's start, the segment's end."""
-    lens = BY_VALUE_LAYOUTS[layout]
+    and ends at the next row's start, the segment's end.  Both wire
+    kernels take such a layout by value, or flat where it holds one
+    non-empty segment, whose rows start at 0, 512, ..."""
+    flat = layout in FLAT_LAYOUTS
+    lens = (FLAT_LAYOUTS if flat else BY_VALUE_LAYOUTS)[layout]
     if lens is None:
         lens = [t.numel() for t in tree_leaves(tree_from_module(
             CIFARResNet(depth=56, num_classes=10)))]
@@ -234,7 +248,13 @@ def test_segments_by_value_match_the_segment_table(layout):
         np.testing.assert_array_equal(start[row:row + rows],
                                       in_off + wc.BLOCK * np.arange(rows))
         assert start[row + rows] == in_off + n
-    assert wc.dequantize_form(lens) == "by_value"
+    if flat:
+        np.testing.assert_array_equal(
+            start, np.append(np.arange(0, table.total, wc.BLOCK),
+                             table.total))
+    want = "flat" if flat else "by_value"
+    assert wc.quantize_form(lens) == want
+    assert wc.dequantize_form(lens) == want
 
 
 @pytest.mark.parametrize("past", ["rows", "values"])
@@ -250,6 +270,7 @@ def test_dequantize_form_switches_at_the_by_value_capacity(past):
         assert wc.dequantize_form(lens) == "by_value"
         assert wc.segments_by_value(lens).size == cap + 1
     assert wc.segments_by_value(more) is None
+    assert wc.quantize_form(more) == "table"
     assert wc.dequantize_form(more) == "table"
     assert wc.dequantize_form([0, sum(more), 0]) == "flat"
 
