@@ -124,6 +124,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -302,7 +303,7 @@ TRACE_PAD_S = 0.2
 def reset_launches():
     for counts in (epilogue.LAUNCHES, epilogue.FOLD_FORMS, attn.LAUNCHES,
                    wc.LAUNCHES, wc.QUANT_FORMS, wc.DEQUANT_FORMS,
-                   mcc.LAUNCHES, po.LAUNCHES):
+                   mcc.LAUNCHES, po.LAUNCHES, po.WAVG_FORMS):
         for k in counts:
             counts[k] = 0
 
@@ -310,8 +311,9 @@ def reset_launches():
 def read_launches():
     """The launch counts, with ``fused_epilogue`` the sum of its channels,
     the wire kernels as ``wire_compression.<kernel>``, and the launches by
-    form of the fold as ``fold_delta.<form>`` and of the wire kernels as
-    ``quantize_form.<form>`` and ``dequantize_form.<form>``."""
+    form of the fold as ``fold_delta.<form>``, of the wire kernels as
+    ``quantize_form.<form>`` and ``dequantize_form.<form>``, and of the
+    weighted average as ``weighted_average_form.<form>``."""
     counts = dict(epilogue.LAUNCHES, **attn.LAUNCHES, **mcc.LAUNCHES,
                   **po.LAUNCHES,
                   **{f"wire_compression.{k}": n
@@ -321,7 +323,9 @@ def read_launches():
                   **{f"quantize_form.{k}": n
                      for k, n in wc.QUANT_FORMS.items()},
                   **{f"dequantize_form.{k}": n
-                     for k, n in wc.DEQUANT_FORMS.items()})
+                     for k, n in wc.DEQUANT_FORMS.items()},
+                  **{f"weighted_average_form.{k}": n
+                     for k, n in po.WAVG_FORMS.items()})
     counts["fused_epilogue"] = sum(
         n for k, n in counts.items() if k.startswith("fused_epilogue."))
     return counts
@@ -2553,6 +2557,42 @@ def _wavg_check(x, w, label):
                       label)
 
 
+def _wavg_tree_forms(dev, gen):
+    """``agg_stacked_pallas`` in its by-value and table forms, on trees of
+    float32 and bfloat16 leaves of every size mod 4, each starting 0-3
+    elements into its storage (the table form past the by-value capacity):
+    every leaf bit for bit the flat form's columns over the leaves
+    concatenated, one launch a call."""
+    c = 5
+    layouts = {"by_value": [1, 2, 3, 4, 5, 130, 33, 1027, 1, 4093, 16, 3000],
+               "table": [1 + (7 * i) % 13
+                         for i in range(po.LEAF_CAPACITY + 16)]}
+    done = {}
+    for form, sizes in layouts.items():
+        leaves = [_offset(torch.randn(c, n, generator=gen).to(
+            torch.bfloat16 if i % 3 == 1 else torch.float32).to(dev), i % 4)
+                  for i, n in enumerate(sizes)]
+        w = torch.randint(1, 600, (c,), generator=gen).to(dev)
+        check(po.weighted_average_form(sizes) == form,
+              f"agg_stacked_pallas: {len(sizes)} leaves take the "
+              f"{po.weighted_average_form(sizes)} form, not {form}")
+        before = po.WAVG_FORMS[form]
+        got = po.agg_stacked_pallas(leaves, w)
+        torch.cuda.synchronize()
+        check(po.WAVG_FORMS[form] == before + 1,
+              f"agg_stacked_pallas: no {form} launch")
+        flat = po.weighted_average_flat(torch.cat([leaf.float()
+                                                   for leaf in leaves], 1), w)
+        off = 0
+        for leaf, out, n in zip(leaves, got, sizes):
+            check(torch.equal(out, flat[off:off + n].to(leaf.dtype)),
+                  f"agg_stacked_pallas ({form}): a leaf of {n} values "
+                  f"differs from the flat form's bits")
+            off += n
+        done[form] = len(sizes)
+    return done
+
+
 def _qmask_inputs(d, gen):
     """x with ±40000 (past int32 once scaled), ±inf, NaN and exact halves
     2^-17·(2k+1); masks near 2^32 − 1 (int32 −1, −2, ...) that wrap."""
@@ -2647,31 +2687,80 @@ def int8_bound(nbytes, flops, m, card, dev):
     return bound_ms, bound_by, text
 
 
+#: traces of one call that ``_device_kernels`` makes at most until the
+#: profiler records a device activity: on the H100 machines a trace of a
+#: few short kernels sometimes comes back with none at all, though the
+#: kernels ran (a trace that records nothing shows nothing)
+TRACE_ATTEMPTS = 5
+
+
 def _device_kernels(fn):
     """The names of the device activities ``torch.profiler`` records over
     one call of ``fn``, the profiler's second step, ``TRACE_PAD_S`` from
     either edge of its window: its first, a warm-up call, absorbs the
-    activities a trace loses as it starts.  Fails where it records none:
-    the count is what the phase checks."""
+    activities a trace loses as it starts.  A trace that records none is
+    made again, up to ``TRACE_ATTEMPTS`` times; fails where none records
+    any: the count is what the phase checks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+            prof.step()
+            time.sleep(TRACE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
+        if kernels:
+            return kernels
+    check(False, f"the profiler recorded no device activity in "
+          f"{TRACE_ATTEMPTS} traces")
+
+
+#: the kinds of the nodes of a captured CUDA graph (the driver's
+#: CUgraphNodeType), for reports
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait event",
+                    7: "event record", 10: "mem alloc", 11: "mem free"}
+
+
+def _graph_nodes(fn):
+    """The kinds of the nodes of the CUDA graph that one call of ``fn``
+    captures (after a warm-up call): every device operation the call
+    enqueues, each kernel, copy and fill its own node.  The profiler cannot
+    count a call of the tree form's kernel: on the H100 machines its traces
+    seldom record a kernel that takes an 8 KB parameter."""
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-        time.sleep(TRACE_PAD_S)
-        prof.step()
-        time.sleep(TRACE_PAD_S)
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(TRACE_PAD_S)
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
-    check(kernels, "the profiler recorded no device activity")
-    return kernels
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for i in range(count.value):
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    graph.reset()
+    return kinds
 
 
 def po_kernel_phase(dev):
@@ -2701,7 +2790,20 @@ def po_kernel_phase(dev):
             elif wkind == "zero":
                 w.zero_()
         w_err[label] = _wavg_check(x, w.to(dev), f"weighted_average {label}")
+    # rows at every offset from a 16-byte boundary, and the tree forms,
+    # from a generator of their own
+    gen_rows = torch.Generator().manual_seed(19)
+    for label, c, d, dtype, off in (
+            ("d_mod4_1_offset_2", 10, 3001, torch.float32, 2),
+            ("d_mod4_3_offset_3", 10, 3003, torch.float32, 3),
+            ("bf16_offset_1", 6, 1025, torch.bfloat16, 1)):
+        x = _offset(torch.randn(c, d, generator=gen_rows).to(dtype).to(dev),
+                    off)
+        w = torch.randint(1, 600, (c,), generator=gen_rows,
+                          dtype=torch.int32)
+        w_err[label] = _wavg_check(x, w.to(dev), f"weighted_average {label}")
     errs["pallas_ops.weighted_average"] = max(w_err.values())
+    tree_forms = _wavg_tree_forms(dev, gen_rows)
 
     n_words = 0
     for d, dtype, off in ((777, torch.float32, 0), (1, torch.float32, 0),
@@ -2746,6 +2848,9 @@ def po_kernel_phase(dev):
     phase(3, "kernels", "pallas_ops weighted_average vs plain version, max "
           "|err| (tolerance C·2^-24·Σ_c|wn_c x_c|): " + ", ".join(
               f"{k} {v:.2e}" for k, v in w_err.items())
+          + "; agg_stacked_pallas bit for bit the flat form over the "
+          "concatenation in each form: " + ", ".join(
+              f"{form} ({n} leaves)" for form, n in tree_forms.items())
           + f"; quantize_mask bit for bit over 5 cases ({n_words} words: "
           f"±40000, ±inf, NaN, halves, wrapping masks, bf16, misaligned, "
           f"D 860,026) on the card and against the CPU; int8_matmul vs "
@@ -2804,6 +2909,32 @@ def po_timing_phase(dev, card):
           f"plain {p1:.4f} / {p2:.4f} ms, library matmul(wn[None], x) "
           f"{lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.2f} MB) -> {bound_ms / ms:.1%} of the bound")
+    del x
+
+    # the tree form over phase 15's stacked ResNet-56 tree: the whole call,
+    # against the design that concatenates the leaves first
+    stacked, counts = resnet56_stacked(
+        dev, torch.Generator(device=dev).manual_seed(18))
+    tree = lambda: po.agg_stacked_pallas(stacked, counts)    # noqa: E731
+    by_cat = lambda: agg_by_concatenation(stacked, counts)   # noqa: E731
+    form = po.weighted_average_form([leaf[0].numel()
+                                     for leaf in tree_leaves(stacked)])
+    t1 = _time_ms(tree, flush, **_hidden(tree))
+    c1 = _time_ms(by_cat, flush, **_hidden(by_cat))
+    c2 = _time_ms(by_cat, flush, **_hidden(by_cat))
+    t2 = _time_ms(tree, flush, **_hidden(tree))
+    nbytes = (c + 1) * d * 4 + c * counts.element_size()
+    tree_bound, tree_by = _bound(nbytes, 2 * c * d, card)
+    t_ms = statistics.median([t1, t2])
+    phase(4, "timing", f"pallas_ops.weighted_average at ResNet-56's "
+          f"stacked tree ({len(tree_leaves(stacked))} leaves, [10, {d}] "
+          f"f32, int64 weights), the whole agg_stacked_pallas call "
+          f"({form} form), cold L2, host hidden, median of 50: {t1:.4f} / "
+          f"{t2:.4f} ms, bound {tree_bound:.4f} ms ({tree_by}: "
+          f"{nbytes / 1e6:.2f} MB) -> {tree_bound / t_ms:.1%} of the bound; "
+          f"the leaves concatenated first, then the flat kernel: "
+          f"{c1:.4f} / {c2:.4f} ms")
+    del stacked
 
     xq = torch.randn(d, generator=gen, device=dev) * 0.01
     mq = torch.randint(-2 ** 31, 2 ** 31, (d,), generator=gen, device=dev,
@@ -2890,20 +3021,49 @@ def po_timing_phase(dev, card):
     return rows
 
 
+def resnet56_stacked(dev, gen):
+    """A stacked ``MC_K``-client ResNet-56 variable tree on ``dev`` (each
+    leaf the module's, perturbed per client) and the clients' sample
+    counts (int64) as its weights, drawn from ``gen`` (on ``dev``)."""
+    tree = tree_from_module(CIFARResNet(depth=56, num_classes=10))
+    stacked = tree_map(lambda leaf: leaf.to(dev)[None] + 0.01 * torch.randn(
+        (MC_K,) + tuple(leaf.shape), generator=gen, device=dev), tree)
+    counts = torch.randint(100, 900, (MC_K,), generator=gen, device=dev)
+    return stacked, counts
+
+
+def agg_by_concatenation(stacked_tree, weights, flat_fn=None):
+    """The tree form of the weighted average as the JAX wrapper builds it:
+    the leaves cast and concatenated into one float32 ``[C, D]``, one flat
+    average (``flat_fn``, by default the port's ``weighted_average_flat``),
+    the result cut into leaves and each cast back to its dtype.  The
+    yardstick that ``agg_stacked_pallas`` reads the leaves in place
+    against."""
+    flat_fn = flat_fn or po.weighted_average_flat
+    leaves = tree_leaves(stacked_tree)
+    c = leaves[0].shape[0]
+    avg = flat_fn(torch.cat([leaf.reshape(c, -1).float()
+                             for leaf in leaves], dim=1), weights)
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(avg[off:off + size].reshape(leaf.shape[1:])
+                   .to(leaf.dtype))
+        off += size
+    return out
+
+
 def po_main_path_phase(n, dev):
     """Kernels B7, B8 and B9 through their public entries at widths the
     repo runs; the launch counts set to 0 before each path and read after."""
     launches = {}
     # B7: a stacked 10-client ResNet-56 variable tree, each leaf perturbed
     # per client, weights the clients' sample counts
-    tree = tree_from_module(CIFARResNet(depth=56, num_classes=10))
-    leaves = tree_leaves(tree)
-    d = sum(leaf.numel() for leaf in leaves)
-    check(d == 860026, f"ResNet-56 has {d} variables")
     gen = torch.Generator(device=dev).manual_seed(18)
-    stacked = tree_map(lambda leaf: leaf.to(dev)[None] + 0.01 * torch.randn(
-        (MC_K,) + tuple(leaf.shape), generator=gen, device=dev), tree)
-    counts = torch.randint(100, 900, (MC_K,), generator=gen, device=dev)
+    stacked, counts = resnet56_stacked(dev, gen)
+    leaves = tree_leaves(stacked)
+    d = sum(leaf[0].numel() for leaf in leaves)
+    check(d == 860026, f"ResNet-56 has {d} variables")
     torch.cuda.synchronize()
     reset_launches()
     avg = po.agg_stacked_pallas(stacked, counts)
@@ -2914,6 +3074,12 @@ def po_main_path_phase(n, dev):
           f"{got['pallas_ops.weighted_average']} weighted averages, not 1")
     launches["pallas_ops.weighted_average"] = got[
         "pallas_ops.weighted_average"]
+    forms = {k.split(".")[1]: n for k, n in got.items()
+             if k.startswith("weighted_average_form.") and n}
+    # the same call captured as a CUDA graph: one kernel, no copy or cast
+    nodes = _graph_nodes(lambda: po.agg_stacked_pallas(stacked, counts))
+    check(nodes == ["kernel"], f"phase {n}: one agg_stacked_pallas call "
+          f"enqueues {nodes}, not one kernel")
     flat = torch.cat([leaf.reshape(MC_K, -1) for leaf in
                       tree_leaves(stacked)], dim=1)
     out = torch.cat([leaf.reshape(-1) for leaf in tree_leaves(avg)])
@@ -2929,7 +3095,9 @@ def po_main_path_phase(n, dev):
     phase(n, "main path", f"pallas_ops.agg_stacked_pallas over a stacked "
           f"{MC_K}-client ResNet-56 variable tree ({len(leaves)} leaves, "
           f"{d} values, integer sample counts): launches "
-          f"{launches['pallas_ops.weighted_average']} weighted_average; max "
+          f"{launches['pallas_ops.weighted_average']} weighted_average "
+          f"(forms {forms}); the call captured as a CUDA graph holds "
+          f"{len(nodes)} node: {nodes[0]}; max "
           f"|err| {e_plain:.2e} vs the plain version, {e_k1:.2e} vs "
           f"agg_stacked (kernel 1, one launch a leaf); tolerance "
           f"C·2^-24·Σ|terms|")

@@ -33,7 +33,8 @@
 //
 //  * the weighted average: bytes.  C*D inputs read once and D outputs
 //    written, 2*C*D operations: at ResNet-56's 860,026 variables and 10
-//    clients, 37.84 MB, about 11.3 us at 3.35 TB/s.
+//    clients, 37.84 MB, about 11.3 us at 3.35 TB/s, in the flat form and
+//    in the tree form alike (the tree's leaves are read where they lie).
 //  * quantize-mask: bytes, 12 per element (x and the mask in, the word
 //    out): 10.32 MB at 860,026 parameters, about 3.1 us.
 //  * the int8 product: bytes at both decode batches, once it runs on the
@@ -50,13 +51,40 @@
 //
 // What the designs do about it:
 //
-//  * weighted average: one coalesced read pass, no intermediate buffer.
-//    Each thread owns 4 neighbouring columns (one 16-byte float32 load or
-//    one 8-byte bfloat16 load per client row) when every row starts
-//    aligned, else one column (coalesced 4-byte loads across the warp),
-//    and walks the clients in order with the sums in registers.  Every
-//    block normalises the weights into shared memory itself, so the whole
-//    average is one launch.
+//  * weighted average: one coalesced read pass, no intermediate buffer,
+//    one launch.  A warp owns a tile of output columns, 4 a lane, and
+//    walks the clients in order with the sums in registers, 4 or 5 rows'
+//    loads in flight a lane; every block normalises the weights into
+//    shared memory itself, after asking L2 for its first rows.  A row need
+//    not start on a 16-byte boundary: its lane columns start r = 0-3
+//    elements past one, the same r for the whole warp, and a launch takes
+//    the build for the worst r of its rows (RowFit).  Every row on a
+//    boundary: the first design's kernel, kept (a thread 4 columns, one
+//    16-byte load of float32 or 8 of bfloat16 a row, 32 registers).
+//    Every row on a boundary or halfway (even D, as ResNet-56's 860,026,
+//    which puts every other row 8 bytes off one): two aligned half loads
+//    where r = 2, no shuffle.  Anything else: the aligned chunk below the
+//    lane's columns, the next one from the lane above by a shuffle,
+//    shifted by r; lane 31 only lends its chunk (124-column tiles), so no
+//    lane waits on a second load.  So every load is whole and aligned,
+//    neighbouring lanes on neighbouring addresses.  The tree form reads
+//    each leaf where it lies, without the JAX wrapper's concatenation (a
+//    Pallas BlockSpec needs one array; a kernel can walk a table): the
+//    tiles run over the output's columns, the leaves' columns one after
+//    another, so many small leaves (BatchNorm's dozens of values) share a
+//    tile and the grid is sized by columns, not by leaves.  A tile inside
+//    one leaf (almost every tile) reads as the flat form does; a tile that
+//    straddles leaves sums column by column from each column's own leaf,
+//    2 rows of 4 columns in flight a lane (reading the tile's leaves in
+//    turn, each as a whole tile, was slower over ResNet-56's tree, whose
+//    BatchNorm statistics put up to 8 leaves in a tile).  The leaf table
+//    goes by value in one 8 KB __grid_constant__ parameter up to 384
+//    leaves and 1,536 units of 3,968 columns (31 or 32 tiles; each unit's
+//    first leaf is in the table, so a warp scans a few entries and
+//    searches nothing), read with one address a warp from the constant
+//    bank; past that it lies on the card (int64, read through the
+//    read-only cache).  One leaf takes the flat form.  Every form sums
+//    each column in client order with fmaf, so all give the same bits.
 //  * quantize-mask: one pass, 16-byte loads and stores of 4 elements per
 //    thread where all three buffers are aligned, a scalar tail.
 //  * int8 product: one launch a product, no buffer in device memory.  K is
@@ -95,6 +123,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <mutex>
 #include <type_traits>
 
@@ -106,6 +136,22 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 // the weighted average keeps C normalised weights in shared memory
 constexpr int kMaxClients = 8192;
+// the weighted average: a warp's tile of columns, 4 a lane (128, or 124
+// where rows are shifted: lane 31 only lends its chunk to lane 30); the
+// client rows a lane has in flight where rows are shifted and where not;
+// whether a warp asks L2 for its first tile's rows (at most kPrefetchRows)
+// before the block normalises the weights; the columns of one entry of a
+// tree's first-leaf table (a whole number of tiles of either width); and
+// the by-value form's capacity
+constexpr int kTileCols = 128;
+constexpr int kShiftTileCols = 124;
+constexpr int kShiftRows = 5;
+constexpr int kWavgRows = 4;
+constexpr int kWavgPrefetch = 1;
+constexpr int kPrefetchRows = 16;
+constexpr int kUnitCols = kTileCols * kShiftTileCols / 4;
+constexpr int kLeafCapacity = 384;
+constexpr int kUnitCapacity = 1536;
 
 enum DtypeCode { kF32 = 0, kBF16 = 1, kF64 = 2, kI32 = 3, kI64 = 4 };
 
@@ -178,15 +224,171 @@ __device__ __forceinline__ void normalise(const Tw* __restrict__ w, int C,
   __syncthreads();
 }
 
-template <typename Tin, typename Tw, int VEC>
+// A lane's 4 columns of one row are a 4-element chunk: 16 bytes of float32
+// or 8 of bfloat16, held as 32-bit words.
+template <typename T>
+struct alignas(4 * sizeof(T)) Chunk {
+  uint32_t w[sizeof(T)];
+};
+
+// Element k (0..3, known at compile time) of a chunk, as float32 (a
+// bfloat16 is the top half of its float32).
+template <typename T>
+__device__ __forceinline__ float chunk_elem(const Chunk<T>& c, int k) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(c.w[k]);
+  } else {
+    return __uint_as_float((k & 1) ? (c.w[k >> 1] & 0xffff0000u)
+                                   : (c.w[k >> 1] << 16));
+  }
+}
+
+// How the rows of a tile sit against the chunks: row c's lane columns
+// start r_c = (x's element offset + c*n + lc0) mod 4 elements past a chunk
+// boundary, r_c the same for every lane.  kWhole: r_c = 0 in every row;
+// kHalf: r_c is 0 or 2; kAny: anything.  A launch takes the worst fit of
+// its rows.
+enum RowFit { kWhole = 0, kHalf = 1, kAny = 2 };
+
+template <int kFit>
+struct FitOf {
+  // columns a tile: 4 a lane; under kAny lane 31 only lends its chunk
+  static constexpr int kCols = kFit == kAny ? kShiftTileCols : kTileCols;
+  // client rows a lane has in flight
+  static constexpr int kRows = kFit == kAny ? kShiftRows : kWavgRows;
+};
+
+// Asks L2 for a lane's first rows of a tile (x + lc in row 0, rows n
+// apart), so that they stream in while the block normalises the weights;
+// the loads then find them there.
+template <typename T>
+__device__ __forceinline__ void prefetch_rows(const T* x, int64_t n,
+                                              int64_t lc, int C) {
+  if (!kWavgPrefetch || lc < 0 || lc >= n) return;
+  const int rows = C < kPrefetchRows ? C : kPrefetchRows;
+  for (int c = 0; c < rows; ++c) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        x + static_cast<int64_t>(c) * n + lc));
+  }
+}
+
+// Row `row` of a leaf of n columns: the chunk of the lane's leaf columns lc
+// .. lc + 3 (lc >= 0), loaded whole (r = 0), as two aligned half chunks
+// (r = 2 under kHalf: 8-byte float32 or 4-byte bfloat16 loads), or as the
+// aligned chunk below it (kAny, r != 0: shifted into place after a
+// shuffle).  A load is made only where it holds a value of the leaf's row,
+// so none reaches a page the leaf does not touch; what it holds past the
+// row is never stored.
+template <typename T, int kFit>
+__device__ __forceinline__ Chunk<T> load_row(const T* row, int64_t lc,
+                                             int64_t n, int r) {
+  Chunk<T> v = {};
+  if (r == 0 || kFit == kWhole) {
+    if (lc < n) v = *reinterpret_cast<const Chunk<T>*>(row + lc);
+  } else if (kFit == kHalf) {
+    using Half = typename std::conditional<sizeof(T) == 4, uint2,
+                                           uint32_t>::type;
+    Half* h = reinterpret_cast<Half*>(&v);
+    if (lc < n) h[0] = *reinterpret_cast<const Half*>(row + lc);
+    if (lc + 2 < n) h[1] = *reinterpret_cast<const Half*>(row + lc + 2);
+  } else if (lc - r < n) {
+    v = *reinterpret_cast<const Chunk<T>*>(
+        reinterpret_cast<uintptr_t>(row + lc) -
+        static_cast<uintptr_t>(r) * sizeof(T));
+  }
+  return v;
+}
+
+// The row's 4 values of the lane's columns from what load_row read: under
+// kAny with r != 0 the next chunk comes from the lane above by a shuffle
+// (every lane runs this together) and the 8 elements shift by r.
+template <typename T, int kFit>
+__device__ __forceinline__ void row_values(const Chunk<T>& lo, int r,
+                                           float (&v)[4]) {
+  if (kFit != kAny) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = chunk_elem(lo, i);
+    return;
+  }
+  Chunk<T> hi;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)); ++i) {
+    hi.w[i] = __shfl_down_sync(0xffffffffu, lo.w[i], 1);
+  }
+  float f[7];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = chunk_elem(lo, e);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) f[e + 4] = chunk_elem(hi, e);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = r == 0 ? f[i] : r == 1 ? f[i + 1] : r == 2 ? f[i + 2] : f[i + 3];
+  }
+}
+
+// One warp's tile: up to FitOf<kFit>::kCols columns of the output from one
+// leaf x, [C, n] row-major, starting at leaf column lc0; dst (16-byte
+// aligned) takes the tile's `cols` columns.  Lane l owns columns 4l .. 4l
+// + 3.  Each lane issues kRows rows' loads before it uses one, and the
+// columns sum in client order with fmaf, as the first design did: every
+// fit and every form gives the same bits.
+template <typename T, int kFit>
+__device__ __forceinline__ void wavg_tile(const T* __restrict__ x, int64_t n,
+                                          int64_t lc0, int cols,
+                                          const float* wn, int C,
+                                          float* __restrict__ dst, int lane) {
+  constexpr int kRows = FitOf<kFit>::kRows;
+  const int64_t lc = lc0 + 4 * lane;
+  const int r0 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(x) / sizeof(T) + lc0) & 3);
+  const int n4 = static_cast<int>(n & 3);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < C; c0 += kRows) {
+    Chunk<T> lo[kRows];
+    int r[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int c = c0 + k;
+      r[k] = kFit == kWhole ? 0 : (r0 + c * n4) & 3;
+      lo[k] = c < C ? load_row<T, kFit>(x + static_cast<int64_t>(c) * n, lc,
+                                        n, r[k])
+                    : Chunk<T>{};
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (c0 + k >= C) break;
+      float v[4];
+      row_values<T, kFit>(lo[k], r[k], v);
+      const float wc = wn[c0 + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(wc, v[i], acc[i]);
+    }
+  }
+  const int col = 4 * lane;
+  if (col + 4 <= cols) {
+    *reinterpret_cast<float4*>(dst + col) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (col + i < cols) dst[col + i] = acc[i];
+    }
+  }
+}
+
+// The flat form where every row starts on a chunk: the first design's
+// kernel, kept as it was (a thread 4 columns, 4 rows unrolled; its 32
+// registers leave room for every block of the grid at once).
+template <typename Tin, typename Tw>
 __global__ void __launch_bounds__(kThreads)
-wavg_kernel(const Tin* __restrict__ x, const Tw* __restrict__ w,
-            float* __restrict__ out, int C, int64_t D) {
+wavg_whole_kernel(const Tin* __restrict__ x, const Tw* __restrict__ w,
+                  float* __restrict__ out, int C, int64_t D) {
+  constexpr int VEC = 4;
   extern __shared__ float wn[];
   __shared__ double scratch[kThreads / 32 + 1];
   normalise(w, C, wn, scratch);
 
-  const int64_t groups = D / VEC;   // VEC > 1 only when VEC divides D
+  const int64_t groups = D / VEC;   // VEC divides D
   const int64_t ld = groups;        // row stride in packs
   const Pack<Tin, VEC>* src = reinterpret_cast<const Pack<Tin, VEC>*>(x);
   Pack<float, VEC>* dst = reinterpret_cast<Pack<float, VEC>*>(out);
@@ -210,24 +412,236 @@ wavg_kernel(const Tin* __restrict__ x, const Tw* __restrict__ w,
   }
 }
 
+// The flat form where some row does not: x [C, D] of one type.  (The
+// explicit bound of 1 block an SM matters: without it nvcc gave the
+// shifted build 48 registers in place of 62 and a schedule with fewer
+// loads in flight, which measured slower than the parent's kernel at
+// some shapes.)
+template <typename Tin, typename Tw, int kFit>
+__global__ void __launch_bounds__(kThreads, 1)
+wavg_kernel(const Tin* __restrict__ x, const Tw* __restrict__ w,
+            float* __restrict__ out, int C, int64_t D) {
+  constexpr int kCols = FitOf<kFit>::kCols;
+  extern __shared__ float wn[];
+  __shared__ double scratch[kThreads / 32 + 1];
+  const int lane = threadIdx.x & 31;
+  const int64_t tiles = (D + kCols - 1) / kCols;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+                     threadIdx.x / 32;
+  if (t0 < tiles) prefetch_rows(x, D, t0 * kCols + 4 * lane, C);
+  normalise(w, C, wn, scratch);
+  for (int64_t t = t0; t < tiles; t += warps) {
+    const int64_t s = t * kCols;
+    const int cols = static_cast<int>(D - s < kCols ? D - s : kCols);
+    wavg_tile<Tin, kFit>(x, D, s, cols, wn, C, out + s, lane);
+  }
+}
+
+// The tree forms: leaf l is a [C, n_l] row-major block of float32 or
+// bfloat16 wherever it lies, and its columns are the output's off[l] ..
+// off[l + 1] - 1.  first[u] is the leaf that holds column u * kUnitCols.
+// By value: one __grid_constant__ parameter of at most 8 KB (ResNet-56's
+// 287 leaves and 217 units fit), read through the constant bank with one
+// address a warp.
+struct LeavesByValue {
+  uint64_t ptr[kLeafCapacity];
+  uint32_t off[kLeafCapacity + 1];
+  uint16_t first[kUnitCapacity];
+  uint8_t bf16[kLeafCapacity];
+};
+static_assert(sizeof(LeavesByValue) <= 8192, "one 8 KB parameter");
+
+// Past that: int64 [off (L + 1) | ptr (L) | bf16 (L) | first (U)] on the
+// card.
+struct LeavesTable {
+  const int64_t* off;
+  const int64_t* ptr;
+  const int64_t* bf16;
+  const int64_t* first;
+};
+
+__device__ __forceinline__ int64_t leaf_off(const LeavesByValue& t, int l) {
+  return t.off[l];
+}
+__device__ __forceinline__ const void* leaf_ptr(const LeavesByValue& t, int l) {
+  return reinterpret_cast<const void*>(t.ptr[l]);
+}
+__device__ __forceinline__ bool leaf_bf16(const LeavesByValue& t, int l) {
+  return t.bf16[l] != 0;
+}
+__device__ __forceinline__ int unit_first(const LeavesByValue& t, int64_t u) {
+  return t.first[u];
+}
+__device__ __forceinline__ int64_t leaf_off(const LeavesTable& t, int l) {
+  return __ldg(t.off + l);
+}
+__device__ __forceinline__ const void* leaf_ptr(const LeavesTable& t, int l) {
+  return reinterpret_cast<const void*>(__ldg(t.ptr + l));
+}
+__device__ __forceinline__ bool leaf_bf16(const LeavesTable& t, int l) {
+  return __ldg(t.bf16 + l) != 0;
+}
+__device__ __forceinline__ int unit_first(const LeavesTable& t, int64_t u) {
+  return static_cast<int>(__ldg(t.first + u));
+}
+
+// A tile that holds columns of more than one leaf (BatchNorm's leaves of a
+// few dozen values share tiles with their neighbours): lane l takes tile
+// columns l, l + 32, l + 64 and l + 96, each from its own leaf, with 2 rows
+// of all four in flight, so that such a tile takes about as long as one
+// inside a leaf.
+template <typename Leaves>
+__device__ __forceinline__ void wavg_tile_leaves(const Leaves& lv, int l,
+                                                 int64_t s, int cols,
+                                                 const float* wn, int C,
+                                                 float* __restrict__ dst,
+                                                 int lane) {
+  constexpr int kCols = kTileCols / 32;
+  uintptr_t at[kCols];
+  int64_t step[kCols];   // bytes from a row to the next
+  bool half[kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int j = lane + 32 * k;
+    at[k] = 0;
+    step[k] = 0;
+    half[k] = false;
+    if (j < cols) {
+      const int64_t g = s + j;
+      while (leaf_off(lv, l + 1) <= g) ++l;
+      const int64_t base = leaf_off(lv, l);
+      half[k] = leaf_bf16(lv, l);
+      step[k] = (leaf_off(lv, l + 1) - base) * (half[k] ? 2 : 4);
+      at[k] = reinterpret_cast<uintptr_t>(leaf_ptr(lv, l)) +
+              static_cast<uintptr_t>(g - base) * (half[k] ? 2 : 4);
+    }
+  }
+  float acc[kCols] = {};
+  for (int c0 = 0; c0 < C; c0 += 2) {
+    float v[2][kCols];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const uintptr_t p = at[k] + static_cast<uintptr_t>(
+                                        static_cast<int64_t>(c0 + i) * step[k]);
+        v[i][k] = 0.f;
+        if (at[k] != 0 && c0 + i < C) {
+          v[i][k] = half[k]
+                        ? __bfloat162float(
+                              *reinterpret_cast<const __nv_bfloat16*>(p))
+                        : *reinterpret_cast<const float*>(p);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (c0 + i >= C) break;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        acc[k] = fmaf(wn[c0 + i], v[i][k], acc[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    if (at[k] != 0) dst[lane + 32 * k] = acc[k];
+  }
+}
+
+// The tree forms' kernel, for trees whose every leaf's rows fit kFit
+// against the output's tiles: a tile inside one leaf reads as the flat
+// form does, any other column by column.
+template <typename Tw, typename Leaves, int kFit>
+__global__ void __launch_bounds__(kThreads, 1)
+wavg_leaves_kernel(const Tw* __restrict__ w, float* __restrict__ out, int C,
+                   int64_t D, const __grid_constant__ Leaves leaves) {
+  constexpr int kCols = FitOf<kFit>::kCols;
+  extern __shared__ float wn[];
+  __shared__ double scratch[kThreads / 32 + 1];
+  const int lane = threadIdx.x & 31;
+  const int64_t tiles = (D + kCols - 1) / kCols;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+                     threadIdx.x / 32;
+  if (kWavgPrefetch && t0 < tiles) {
+    // the rows of the first tile's first leaf
+    const int64_t s = t0 * kCols;
+    int l = unit_first(leaves, s / kUnitCols);
+    while (leaf_off(leaves, l + 1) <= s) ++l;
+    const int64_t base = leaf_off(leaves, l);
+    const int64_t n = leaf_off(leaves, l + 1) - base;
+    if (leaf_bf16(leaves, l)) {
+      prefetch_rows(static_cast<const __nv_bfloat16*>(leaf_ptr(leaves, l)), n,
+                    s - base + 4 * lane, C);
+    } else {
+      prefetch_rows(static_cast<const float*>(leaf_ptr(leaves, l)), n,
+                    s - base + 4 * lane, C);
+    }
+  }
+  normalise(w, C, wn, scratch);
+  for (int64_t t = t0; t < tiles; t += warps) {
+    const int64_t s = t * kCols;
+    const int cols = static_cast<int>(D - s < kCols ? D - s : kCols);
+    int l = unit_first(leaves, s / kUnitCols);
+    while (leaf_off(leaves, l + 1) <= s) ++l;
+    const int64_t base = leaf_off(leaves, l);
+    const int64_t end = leaf_off(leaves, l + 1);
+    if (s + cols > end) {
+      wavg_tile_leaves(leaves, l, s, cols, wn, C, out + s, lane);
+    } else if (leaf_bf16(leaves, l)) {
+      wavg_tile<__nv_bfloat16, kFit>(
+          static_cast<const __nv_bfloat16*>(leaf_ptr(leaves, l)), end - base,
+          s - base, cols, wn, C, out + s, lane);
+    } else {
+      wavg_tile<float, kFit>(static_cast<const float*>(leaf_ptr(leaves, l)),
+                             end - base, s - base, cols, wn, C, out + s, lane);
+    }
+  }
+}
+
+// A warp a tile, 8 a block: (tiles * 32) threads, capped as grid_for caps.
+inline int wavg_grid(int64_t D, int cols) {
+  return grid_for(((D + cols - 1) / cols) * 32);
+}
+
+// The worst fit of the rows of x [C, D] against the chunks.
+template <typename T>
+int flat_fit(const void* x, int C, int64_t D) {
+  const int64_t e = (reinterpret_cast<uintptr_t>(x) / sizeof(T)) & 3;
+  const int64_t d4 = C == 1 ? 0 : D & 3;
+  if (e == 0 && d4 == 0) return kWhole;
+  return (e | d4) & 1 ? kAny : kHalf;
+}
+
+template <typename Tin, typename Tw, int kFit>
+int launch_wavg_fit(const Tin* x, const Tw* w, float* out, int C, int64_t D,
+                    cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(C) * sizeof(float);
+  if (kFit == kWhole && D % 4 == 0) {
+    wavg_whole_kernel<Tin, Tw>
+        <<<grid_for(D / 4), kThreads, smem, stream>>>(x, w, out, C, D);
+  } else {
+    wavg_kernel<Tin, Tw, kFit>
+        <<<wavg_grid(D, FitOf<kFit>::kCols), kThreads, smem, stream>>>(
+            x, w, out, C, D);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Tin, typename Tw>
 int launch_wavg(const void* x, const void* w, float* out, int C, int64_t D,
                 cudaStream_t stream) {
-  // 4 columns a thread when every row starts aligned to the pack
-  constexpr int kVec = 4;
-  const bool vec = D % kVec == 0 && aligned(x, sizeof(Tin) * kVec) &&
-                   aligned(out, 16);
-  const size_t smem = static_cast<size_t>(C) * sizeof(float);
   const Tin* xs = static_cast<const Tin*>(x);
   const Tw* ws = static_cast<const Tw*>(w);
-  if (vec) {
-    wavg_kernel<Tin, Tw, kVec><<<grid_for(D / kVec), kThreads, smem,
-                                 stream>>>(xs, ws, out, C, D);
-  } else {
-    wavg_kernel<Tin, Tw, 1><<<grid_for(D), kThreads, smem, stream>>>(
-        xs, ws, out, C, D);
+  switch (flat_fit<Tin>(x, C, D)) {
+    case kWhole: return launch_wavg_fit<Tin, Tw, kWhole>(xs, ws, out, C, D,
+                                                         stream);
+    case kHalf: return launch_wavg_fit<Tin, Tw, kHalf>(xs, ws, out, C, D,
+                                                       stream);
+    default: return launch_wavg_fit<Tin, Tw, kAny>(xs, ws, out, C, D, stream);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tin>
@@ -240,6 +654,56 @@ int dispatch_wavg_weights(const void* x, const void* w, int w_dtype,
     case kI64: return launch_wavg<Tin, int64_t>(x, w, out, C, D, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename Tw, typename Leaves>
+int launch_wavg_leaves(const void* w, float* out, int C, int64_t D,
+                       const Leaves& leaves, int fit, cudaStream_t stream) {
+  const Tw* ws = static_cast<const Tw*>(w);
+  const size_t smem = static_cast<size_t>(C) * sizeof(float);
+  switch (fit) {
+    case kWhole:
+      wavg_leaves_kernel<Tw, Leaves, kWhole>
+          <<<wavg_grid(D, FitOf<kWhole>::kCols), kThreads, smem, stream>>>(
+              ws, out, C, D, leaves);
+      break;
+    case kHalf:
+      wavg_leaves_kernel<Tw, Leaves, kHalf>
+          <<<wavg_grid(D, FitOf<kHalf>::kCols), kThreads, smem, stream>>>(
+              ws, out, C, D, leaves);
+      break;
+    case kAny:
+      wavg_leaves_kernel<Tw, Leaves, kAny>
+          <<<wavg_grid(D, FitOf<kAny>::kCols), kThreads, smem, stream>>>(
+              ws, out, C, D, leaves);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Leaves>
+int dispatch_wavg_leaves(const void* w, int w_dtype, float* out, int C,
+                         int64_t D, const Leaves& leaves, int fit,
+                         cudaStream_t s) {
+  switch (w_dtype) {
+    case kF32: return launch_wavg_leaves<float>(w, out, C, D, leaves, fit, s);
+    case kF64: return launch_wavg_leaves<double>(w, out, C, D, leaves, fit, s);
+    case kI32:
+      return launch_wavg_leaves<int32_t>(w, out, C, D, leaves, fit, s);
+    case kI64:
+      return launch_wavg_leaves<int64_t>(w, out, C, D, leaves, fit, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The checks every form makes before it launches; sets the device.
+int wavg_prepare(int C, long long D, const float* out, int device) {
+  if (C < 1 || C > kMaxClients || D < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned(out, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return static_cast<int>(cudaSetDevice(device));
 }
 
 // --------------------------------------------------------- quantize-mask
@@ -1077,17 +1541,19 @@ const char* fedml_cuda_error_string(int code) {
 
 int fedml_wavg_max_clients() { return kMaxClients; }
 
-// x: [C, D] contiguous, float32 (x_dtype 0) or bfloat16 (1); w: [C] of
-// float32 (0), float64 (2), int32 (3) or int64 (4); out: float32 [D].  All
-// on `device`.
+// The by-value form's capacity: leaves, and units of unit_cols columns.
+int fedml_wavg_leaf_capacity() { return kLeafCapacity; }
+int fedml_wavg_unit_capacity() { return kUnitCapacity; }
+int fedml_wavg_unit_cols() { return kUnitCols; }
+
+// The flat form.  x: [C, D] contiguous, float32 (x_dtype 0) or bfloat16
+// (1); w: [C] of float32 (0), float64 (2), int32 (3) or int64 (4); out:
+// float32 [D], 16-byte aligned.  All on `device`.
 int fedml_weighted_average(const void* x, int x_dtype, const void* w,
                            int w_dtype, float* out, int C, long long D,
                            int device, void* stream) {
-  if (C < 1 || C > kMaxClients || D < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = wavg_prepare(C, D, out, device);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case kF32: return dispatch_wavg_weights<float>(x, w, w_dtype, out, C, D, s);
@@ -1095,6 +1561,55 @@ int fedml_weighted_average(const void* x, int x_dtype, const void* w,
       return dispatch_wavg_weights<__nv_bfloat16>(x, w, w_dtype, out, C, D, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tree form by value: n_leaves (<= kLeafCapacity) leaves, leaf l at
+// ptr[l] ([C, off[l + 1] - off[l]] row-major, bfloat16 where bf16[l], else
+// float32), off[0] = 0 and off[n_leaves] = D; first[u] the leaf that holds
+// column u * kUnitCols, for the n_units = ceil(D / kUnitCols) (<=
+// kUnitCapacity) units.  fit: the worst RowFit of the leaves' rows against
+// the output's chunks (row c of leaf l starts (ptr[l] / its element size -
+// off[l] + c * n_l) mod 4 elements past one).  The arrays lie in host
+// memory.  w and out as for the flat form.
+int fedml_weighted_average_leaves(const uint64_t* ptr, const uint32_t* off,
+                                  const uint8_t* bf16, int n_leaves,
+                                  const uint16_t* first, int n_units,
+                                  int fit, const void* w, int w_dtype,
+                                  float* out, int C, long long D, int device,
+                                  void* stream) {
+  const int err = wavg_prepare(C, D, out, device);
+  if (err != 0) return err;
+  if (n_leaves < 1 || n_leaves > kLeafCapacity || n_units > kUnitCapacity ||
+      n_units != (D + kUnitCols - 1) / kUnitCols || off[0] != 0 ||
+      off[n_leaves] != D) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LeavesByValue leaves;
+  memcpy(leaves.ptr, ptr, sizeof(uint64_t) * n_leaves);
+  memcpy(leaves.off, off, sizeof(uint32_t) * (n_leaves + 1));
+  memcpy(leaves.bf16, bf16, n_leaves);
+  memcpy(leaves.first, first, sizeof(uint16_t) * n_units);
+  return dispatch_wavg_leaves(w, w_dtype, out, C, D, leaves, fit,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The tree form past the by-value capacity: table, int64 [off (n_leaves +
+// 1) | ptr (n_leaves) | bf16 (n_leaves) | first (ceil(D / kUnitCols))] on
+// `device`, each part, and fit, as for the by-value form.
+int fedml_weighted_average_table(const int64_t* table, int n_leaves, int fit,
+                                 const void* w, int w_dtype, float* out,
+                                 int C, long long D, int device,
+                                 void* stream) {
+  const int err = wavg_prepare(C, D, out, device);
+  if (err != 0) return err;
+  if (n_leaves < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LeavesTable leaves;
+  leaves.off = table;
+  leaves.ptr = table + n_leaves + 1;
+  leaves.bf16 = leaves.ptr + n_leaves;
+  leaves.first = leaves.bf16 + n_leaves;
+  return dispatch_wavg_leaves(w, w_dtype, out, C, D, leaves, fit,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // x: [n] float32 (0) or bfloat16 (1); mask and out: [n] 32-bit words

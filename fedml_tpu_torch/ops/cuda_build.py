@@ -105,6 +105,7 @@ def load_variant(name: str, src: str, like: ctypes.CDLL,
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
                            f"\n{proc.stdout}{proc.stderr}")
+    build_logs[name] = proc.stdout + proc.stderr
     lib = ctypes.CDLL(str(out))
     for fn in fns:
         ours, theirs = getattr(like, fn), getattr(lib, fn)

@@ -7,8 +7,15 @@ Port of ``fedml_tpu/ops/pallas_ops.py``.  Names, JAX package → port:
   plain version ``weighted_average_flat_reference``: ``[C, D]`` stacked
   client updates and weights ``[C]`` → float32 ``[D]``,
   ``Σ_c (w_c / max(Σw, 1e-12)) · x[c]``; ``agg_stacked_pallas`` reduces a
-  whole tree of ``[C, ...]`` leaves in one launch over their
-  concatenation and casts each leaf back to its dtype;
+  whole tree of ``[C, ...]`` leaves in one launch that reads each leaf
+  where it lies (``wavg_leaves_kernel``; the JAX wrapper concatenates
+  them first) and casts each leaf back to its dtype.  Its launch form
+  follows the layout (``weighted_average_plan``): one leaf with values
+  takes the flat form, up to ``LEAF_CAPACITY`` leaves and
+  ``UNIT_CAPACITY`` units of ``UNIT_COLS`` columns go by value in one
+  kernel parameter, larger trees through a table on the card;
+  ``WAVG_FORMS`` counts each.  Every form gives the flat form's bits over
+  the leaves concatenated;
 * ``_qmask_kernel`` (``quantize_mask``) → ``qmask_kernel``, plain version
   ``quantize_mask_reference``: SecAgg's fused quantize and mask add,
   ``uint32(int32(round(x · scale))) + mask`` modulo 2^32;
@@ -63,7 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +82,16 @@ from . import cuda_build
 #: launches it (under a lock: SecAgg's silos may mask from threads)
 LAUNCHES = {"pallas_ops.weighted_average": 0, "pallas_ops.quantize_mask": 0,
             "pallas_ops.int8_matmul": 0}
+#: the weighted average's launches by form (``weighted_average_form``)
+WAVG_FORMS = {"flat": 0, "by_value": 0, "table": 0}
+#: the by-value form's capacity, one 8 KB kernel parameter
+#: (``csrc/pallas_ops.cu`` ``kLeafCapacity``, ``kUnitCapacity``): leaves,
+#: and units of ``UNIT_COLS`` output columns, a whole number of the
+#: kernel's 128- and 124-column tiles (each unit's first leaf is passed, so
+#: that no warp searches the leaves)
+LEAF_CAPACITY = 384
+UNIT_CAPACITY = 1536
+UNIT_COLS = 3968
 #: what the tensor-core path multiplies each of ``bf16_parts``' scaled
 #: parts of float32 x by, times q: the parts are scaled up by as much
 PART_SCALES = (1.0, 2.0 ** -8, 2.0 ** -16)
@@ -107,6 +124,22 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.fedml_weighted_average.restype = i
             lib.fedml_wavg_max_clients.argtypes = []
             lib.fedml_wavg_max_clients.restype = i
+            lib.fedml_weighted_average_leaves.argtypes = [
+                vp, vp, vp, i, vp, i, i, vp, i, vp, i, ll, i, vp]
+            lib.fedml_weighted_average_leaves.restype = i
+            lib.fedml_weighted_average_table.argtypes = [vp, i, i, vp, i, vp,
+                                                         i, ll, i, vp]
+            lib.fedml_weighted_average_table.restype = i
+            for fn in ("fedml_wavg_leaf_capacity", "fedml_wavg_unit_capacity",
+                       "fedml_wavg_unit_cols"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = i
+            if ((lib.fedml_wavg_leaf_capacity(), lib.fedml_wavg_unit_capacity(),
+                 lib.fedml_wavg_unit_cols())
+                    != (LEAF_CAPACITY, UNIT_CAPACITY, UNIT_COLS)):
+                raise RuntimeError("pallas_ops: the weighted average's "
+                                   "by-value capacity differs from the "
+                                   "wrapper's")
             lib.fedml_quantize_mask.argtypes = [vp, i, vp, vp,
                                                 ctypes.c_float, ll, i, vp]
             lib.fedml_quantize_mask.restype = i
@@ -170,57 +203,226 @@ def weighted_average_flat_reference(stacked: torch.Tensor,
     return torch.matmul(normalized_weights(weights), stacked.float())
 
 
+def _check_weights(weights: torch.Tensor, c: int, what: str,
+                   operand: str) -> int:
+    """The kernel's code for ``weights``' dtype; raises on what the kernel
+    does not take."""
+    w_code = _W_CODES.get(weights.dtype)
+    if w_code is None:
+        raise TypeError(f"{what} kernel takes float32, float64, int32 or "
+                        f"int64 weights, not {weights.dtype}")
+    if weights.shape != (c,) or not weights.is_contiguous():
+        raise ValueError(f"{what} kernel takes {operand} and contiguous "
+                         f"weights [C], not C = {c} and weights "
+                         f"{tuple(weights.shape)}")
+    max_c = _kernel_lib().fedml_wavg_max_clients()
+    if not 1 <= c <= max_c:
+        raise ValueError(f"{what} kernel takes 1..{max_c} clients, not {c}")
+    return w_code
+
+
+def _launch_flat(stacked: torch.Tensor, weights: torch.Tensor, w_code: int,
+                 out: torch.Tensor) -> None:
+    c, d = stacked.shape
+    lib = _kernel_lib()
+    rc = lib.fedml_weighted_average(stacked.data_ptr(),
+                                    _X_CODES[stacked.dtype],
+                                    weights.data_ptr(), w_code,
+                                    out.data_ptr(), c, d,
+                                    _device_index(stacked), _stream(stacked))
+    _check_launch(rc, lib, "weighted_average")
+    _count_form("flat")
+
+
+def _count_form(form: str) -> None:
+    with _count_lock:
+        LAUNCHES["pallas_ops.weighted_average"] += 1
+        WAVG_FORMS[form] += 1
+
+
 def weighted_average_flat(stacked: torch.Tensor, weights: torch.Tensor
                           ) -> torch.Tensor:
     """``[C, D]`` stacked flat updates, ``[C]`` weights → float32 ``[D]``
     weighted average."""
     if _on_cpu("weighted_average_flat", stacked, weights):
         return weighted_average_flat_reference(stacked, weights)
-    x_code = _X_CODES.get(stacked.dtype)
-    w_code = _W_CODES.get(weights.dtype)
-    if x_code is None or w_code is None:
+    if stacked.dtype not in _X_CODES:
         raise TypeError(f"weighted_average kernel takes float32 or bfloat16 "
-                        f"updates and float32, float64, int32 or int64 "
-                        f"weights, not {stacked.dtype} and {weights.dtype}")
-    if stacked.dim() != 2 or weights.shape != (stacked.shape[0],):
-        raise ValueError(f"weighted_average kernel takes stacked [C, D] and "
-                         f"weights [C], not {tuple(stacked.shape)} and "
-                         f"{tuple(weights.shape)}")
-    if not (stacked.is_contiguous() and weights.is_contiguous()):
+                        f"updates, not {stacked.dtype}")
+    if stacked.dim() != 2 or stacked.shape[1] < 1:
+        raise ValueError(f"weighted_average kernel takes stacked [C, D] with "
+                         f"D >= 1, not {tuple(stacked.shape)}")
+    if not stacked.is_contiguous():
         raise ValueError("weighted_average kernel takes contiguous stacked "
-                         "updates and weights")
-    c, d = stacked.shape
-    lib = _kernel_lib()
-    max_c = lib.fedml_wavg_max_clients()
-    if not 1 <= c <= max_c or d < 1:
-        raise ValueError(f"weighted_average kernel takes 1..{max_c} clients "
-                         f"and D >= 1, not [{c}, {d}]")
-    out = torch.empty(d, dtype=torch.float32, device=stacked.device)
-    rc = lib.fedml_weighted_average(stacked.data_ptr(), x_code,
-                                    weights.data_ptr(), w_code,
-                                    out.data_ptr(), c, d,
-                                    _device_index(stacked), _stream(stacked))
-    _check_launch(rc, lib, "weighted_average")
-    _count("pallas_ops.weighted_average")
+                         "updates")
+    w_code = _check_weights(weights, stacked.shape[0], "weighted_average",
+                            "stacked [C, D]")
+    out = torch.empty(stacked.shape[1], dtype=torch.float32,
+                      device=stacked.device)
+    _launch_flat(stacked, weights, w_code, out)
     return out
 
 
+class WavgPlan(NamedTuple):
+    """How the tree form reads a layout of leaves (``weighted_average_plan``)."""
+    form: str                 # flat, by_value or table
+    offsets: Tuple[int, ...]  # each leaf's first output column, last D
+    kept: Tuple[int, ...]     # the leaves with columns, in tree order
+    first: np.ndarray         # int64 [ceil(D / UNIT_COLS)]: the kept leaf
+                              # (index into ``kept``) that holds column
+                              # u * UNIT_COLS
+    total: int                # D
+
+
+_wavg_plans: Dict[Tuple[int, ...], WavgPlan] = {}
+_PLAN_CACHE = 64
+
+
+def weighted_average_plan(sizes: Sequence[int]) -> WavgPlan:
+    """The tree form's plan for leaves of ``sizes`` columns (values a
+    client), in tree order, cached per layout.  The leaves' columns follow
+    one another in the output; leaves without columns are left out of the
+    kernel's table.  Form: ``flat`` where one leaf has columns, ``by_value``
+    up to ``LEAF_CAPACITY`` leaves and ``UNIT_CAPACITY`` units (D below
+    2^32), else ``table``."""
+    key = tuple(int(n) for n in sizes)
+    plan = _wavg_plans.get(key)
+    if plan is not None:
+        return plan
+    if min(key, default=0) < 0:
+        raise ValueError(f"leaf sizes {key[:8]}... must be >= 0")
+    offsets = tuple(int(v) for v in np.concatenate(
+        [[0], np.cumsum(key, dtype=np.int64)]))
+    total = offsets[-1]
+    kept = tuple(i for i, n in enumerate(key) if n)
+    starts = np.asarray([offsets[i] for i in kept], dtype=np.int64)
+    units = np.arange(0, total, UNIT_COLS, dtype=np.int64)
+    first = np.searchsorted(starts, units, side="right") - 1
+    if len(kept) <= 1:
+        form = "flat"
+    elif (len(kept) <= LEAF_CAPACITY and len(units) <= UNIT_CAPACITY
+          and total < 2 ** 32):
+        form = "by_value"
+    else:
+        form = "table"
+    plan = WavgPlan(form, offsets, kept, first.astype(np.int64), total)
+    with _count_lock:
+        if len(_wavg_plans) >= _PLAN_CACHE:
+            _wavg_plans.pop(next(iter(_wavg_plans)))
+        _wavg_plans[key] = plan
+    return plan
+
+
+def weighted_average_form(sizes: Sequence[int]) -> str:
+    """The launch form of the tree form for leaves of ``sizes`` columns:
+    ``flat``, ``by_value`` or ``table``."""
+    return weighted_average_plan(sizes).form
+
+
+def _row_fit(ptr: np.ndarray, bf16: np.ndarray, starts: np.ndarray,
+             c: int) -> int:
+    """How the rows of the leaves sit against the kernel's 4-element chunks
+    of the output's columns (``csrc/pallas_ops.cu`` ``RowFit``): 0 where
+    every row starts on one, 1 where every row starts on one or halfway, 2
+    otherwise.  Row k of leaf l starts ``(ptr_l / its element size −
+    starts_l + k · n_l) mod 4`` elements past a chunk."""
+    e = (ptr // np.where(bf16 != 0, 2, 4) - starts[:-1]) & 3
+    n4 = np.diff(starts) & 3 if c > 1 else np.zeros_like(e)
+    if not (e | n4).any():
+        return 0
+    return 2 if ((e | n4) & 1).any() else 1
+
+
+def _launch_leaves(plan: WavgPlan, leaves, weights: torch.Tensor,
+                   w_code: int, out: torch.Tensor,
+                   lib: Optional[ctypes.CDLL] = None) -> None:
+    """One launch of the by-value or the table form over ``plan``'s kept
+    leaves, through ``lib`` (another build of the same C interface, for
+    profiling) or the port's own build."""
+    kept = [leaves[i] for i in plan.kept]
+    c = int(weights.shape[0])
+    ptr = np.fromiter((leaf.data_ptr() for leaf in kept), dtype=np.uint64,
+                      count=len(kept))
+    bf16 = np.fromiter((leaf.dtype == torch.bfloat16 for leaf in kept),
+                       dtype=np.uint8, count=len(kept))
+    starts = np.asarray([plan.offsets[i] for i in plan.kept] + [plan.total],
+                        dtype=np.int64)
+    fit = _row_fit(ptr.view(np.int64), bf16, starts, c)
+    lib = lib or _kernel_lib()
+    dev, stream = _device_index(weights), _stream(weights)
+    if plan.form == "by_value":
+        off = starts.astype(np.uint32)
+        first = plan.first.astype(np.uint16)
+        rc = lib.fedml_weighted_average_leaves(
+            ptr.ctypes.data, off.ctypes.data, bf16.ctypes.data, len(kept),
+            first.ctypes.data, len(first), fit, weights.data_ptr(), w_code,
+            out.data_ptr(), c, plan.total, dev, stream)
+    else:
+        host = np.concatenate([starts, ptr.view(np.int64),
+                               bf16.astype(np.int64), plan.first])
+        # through pinned memory, so that the copy joins the stream ahead of
+        # the kernel without holding up the host (the caching host
+        # allocator keeps the block until the copy has run)
+        table = torch.from_numpy(host).pin_memory().to(weights.device,
+                                                       non_blocking=True)
+        rc = lib.fedml_weighted_average_table(
+            table.data_ptr(), len(kept), fit, weights.data_ptr(), w_code,
+            out.data_ptr(), c, plan.total, dev, stream)
+    _check_launch(rc, lib, f"weighted_average ({plan.form})")
+    _count_form(plan.form)
+
+
 def agg_stacked_pallas(stacked_tree: Any, weights: torch.Tensor) -> Any:
-    """The tree form of ``weighted_average_flat``: the leaves (each
-    ``[C, ...]``) concatenated into one float32 ``[C, D]``, reduced in one
-    launch, and cut back into leaves, each cast to its own dtype."""
+    """The tree form of ``weighted_average_flat``: leaves ``[C, ...]`` →
+    their weighted averages, each in its leaf's dtype, equal column for
+    column to the flat form over the leaves concatenated.  On the card one
+    launch reads every leaf where it lies (``weighted_average_plan``'s
+    form) into one float32 ``[D]``; float32 leaves of the result are views
+    of it, the others casts."""
     leaves = tree_leaves(stacked_tree)
     if not leaves:
         raise ValueError("agg_stacked_pallas: the tree has no leaves")
-    c = int(leaves[0].shape[0])
-    flat = torch.cat([leaf.reshape(c, -1).float() for leaf in leaves], dim=1)
-    avg = weighted_average_flat(flat, weights)
-    out, off = [], 0
+    c = int(leaves[0].shape[0]) if leaves[0].dim() else 0
+    sizes = [leaf.numel() // c if c else 0 for leaf in leaves]
+    if _on_cpu("agg_stacked_pallas", weights, *leaves):
+        flat = torch.cat([leaf.reshape(c, -1).float() for leaf in leaves],
+                         dim=1)
+        return _cut(stacked_tree, leaves,
+                    weighted_average_flat_reference(flat, weights),
+                    weighted_average_plan(sizes).offsets)
     for leaf in leaves:
-        size = leaf[0].numel()
-        out.append(avg[off:off + size].reshape(leaf.shape[1:])
-                   .to(leaf.dtype))
-        off += size
+        if leaf.dtype not in _X_CODES:
+            raise TypeError(f"agg_stacked_pallas kernel takes float32 or "
+                            f"bfloat16 leaves, not {leaf.dtype}")
+        if leaf.dim() < 1 or leaf.shape[0] != c:
+            raise ValueError(f"agg_stacked_pallas kernel takes leaves [C, "
+                             f"...] of one C = {c}, not "
+                             f"{tuple(leaf.shape)}")
+        if not leaf.is_contiguous():
+            raise ValueError("agg_stacked_pallas kernel takes contiguous "
+                             "leaves")
+    w_code = _check_weights(weights, c, "agg_stacked_pallas",
+                            "leaves [C, ...]")
+    plan = weighted_average_plan(sizes)
+    if plan.total < 1:
+        raise ValueError("agg_stacked_pallas kernel takes leaves with at "
+                         "least one value a client")
+    out = torch.empty(plan.total, dtype=torch.float32,
+                      device=weights.device)
+    if plan.form == "flat":
+        _launch_flat(leaves[plan.kept[0]].reshape(c, -1), weights, w_code,
+                     out)
+    else:
+        _launch_leaves(plan, leaves, weights, w_code, out)
+    return _cut(stacked_tree, leaves, out, plan.offsets)
+
+
+def _cut(stacked_tree: Any, leaves, avg: torch.Tensor,
+         offsets: Sequence[int]) -> Any:
+    """``avg`` cut into the leaves' shapes at ``offsets``, each leaf that
+    is not float32 cast to its dtype."""
+    out = [avg[offsets[i]:offsets[i + 1]].view(leaf.shape[1:])
+           .to(leaf.dtype) for i, leaf in enumerate(leaves)]
     return tree_unflatten(stacked_tree, out)
 
 

@@ -6,7 +6,9 @@ against the same round on the CPU, the multi-client conv's forward and
 weight-gradient kernels (forward, dx and dw; within the float32 error of
 sums in another order, √terms · 2^-23 · Σ|terms|, and one bfloat16 step),
 and ``ops/pallas_ops``' weighted average and int8 product (within the
-float32 bound of a sum of C or K terms) and SecAgg's quantize-mask (bit for
+float32 bound of a sum of C or K terms; the weighted average also at every
+row offset, and its tree form in each launch form bit for bit the flat
+form over the leaves concatenated) and SecAgg's quantize-mask (bit for
 bit), with SecAgg's round and the int8 weight quantization card against CPU.  Every test here needs an NVIDIA card
 and ``nvcc``: the kernel has no CPU mode, so they skip elsewhere.  The file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
@@ -1199,6 +1201,104 @@ def test_weighted_average_kernel_matches_plain_version(name, card_fp32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("d_mod4", [0, 1, 2, 3])
+def test_weighted_average_kernel_at_every_row_offset(d_mod4, offset, dtype,
+                                                     card_fp32):
+    """Rows that start 0-3 elements past a 16-byte (bfloat16: 8-byte)
+    chunk, from every D mod 4 and every base offset: within the bound of
+    the plain version, and bit for bit the same sums as the same rows read
+    from an aligned start."""
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    c, d = 7, 1000 + d_mod4
+    gen = torch.Generator().manual_seed(10 * d_mod4 + offset)
+    x = torch.randn(c, d, generator=gen).to(dtype).to(card_fp32)
+    w = torch.randint(1, 600, (c,), generator=gen,
+                      dtype=torch.int32).to(card_fp32)
+    xo = _misaligned(x, offset)
+    before = dict(po.WAVG_FORMS)
+    got = po.weighted_average_flat(xo, w)
+    torch.cuda.synchronize()
+    assert po.WAVG_FORMS == dict(before, flat=before["flat"] + 1)
+    ref = po.weighted_average_flat_reference(xo, w)
+    wn = po.normalized_weights(w)
+    bound = c * 2.0 ** -24 * (wn.abs() @ x.float().abs()) + 1e-30
+    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(got, po.weighted_average_flat(x, w))
+
+
+def _form_tree(form, card):
+    """(leaves, weights) laid out for one launch form: one leaf (with an
+    empty one beside it); 23 float32 and bfloat16 leaves of every size mod
+    4, each starting 0-3 elements into its storage, with leaves of 1-3
+    values that share a warp's tile; 400 leaves, past the by-value
+    capacity; and two leaves of 6.1 million columns in all, past its
+    units."""
+    gen = torch.Generator().manual_seed(len(form))
+    c = 5
+    if form == "flat":
+        sizes, dtypes = [0, 1234, 0], [torch.float32] * 3
+    elif form == "by_value":
+        sizes = [1, 2, 3, 4, 5, 6, 7, 130, 33, 1027, 2, 3, 1, 500, 129,
+                 4093, 64, 16, 1, 1, 77, 3000, 9]
+        dtypes = [torch.bfloat16 if i % 3 == 1 else torch.float32
+                  for i in range(len(sizes))]
+    elif form == "table":
+        sizes = [1 + (7 * i) % 13 for i in range(400)]
+        dtypes = [torch.bfloat16 if i % 5 == 2 else torch.float32
+                  for i in range(len(sizes))]
+    else:   # "table_long"
+        sizes, dtypes = [4000003, 2100001], [torch.float32, torch.bfloat16]
+    leaves = []
+    for i, (n, dt) in enumerate(zip(sizes, dtypes)):
+        shape = (c, n) if i % 2 else (c, 1, n)
+        x = torch.randn(shape, generator=gen).to(dt).to(card)
+        leaves.append(_misaligned(x, i % 4))
+    w = torch.randint(1, 600, (c,), generator=gen).to(card)
+    return leaves, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["flat", "by_value", "table",
+                                  "table_long"])
+def test_agg_stacked_pallas_forms_match_the_flat_form_bit_for_bit(form,
+                                                                   card_fp32):
+    """Every launch form reads the leaves where they lie in one launch and
+    gives, column for column, the flat form's bits over the leaves
+    concatenated; float32 leaves of the result are views of one buffer."""
+    from fedml_tpu_torch.ops import pallas_ops as po
+
+    leaves, w = _form_tree(form, card_fp32)
+    tree = {f"l{i:03d}": leaf for i, leaf in enumerate(leaves)}
+    sizes = [leaf[0].numel() for leaf in leaves]
+    want_form = form.split("_")[0] if form != "by_value" else form
+    assert po.weighted_average_form(sizes) == want_form
+    before, forms = dict(po.LAUNCHES), dict(po.WAVG_FORMS)
+    got = po.agg_stacked_pallas(tree, w)
+    torch.cuda.synchronize()
+    assert po.LAUNCHES == dict(before, **{
+        "pallas_ops.weighted_average":
+            before["pallas_ops.weighted_average"] + 1})
+    assert po.WAVG_FORMS == dict(forms, **{want_form: forms[want_form] + 1})
+    flat = po.weighted_average_flat(torch.cat(
+        [leaf.reshape(leaf.shape[0], -1).float() for leaf in leaves], 1), w)
+    off = 0
+    storages = set()
+    for i, leaf in enumerate(leaves):
+        out = got[f"l{i:03d}"]
+        n = sizes[i]
+        assert out.dtype == leaf.dtype and out.shape == leaf.shape[1:]
+        assert torch.equal(out, flat[off:off + n].view(out.shape)
+                           .to(leaf.dtype))
+        if leaf.dtype == torch.float32 and n:
+            storages.add(out.untyped_storage().data_ptr())
+        off += n
+    assert len(storages) <= 1
+
+
+@pytest.mark.gpu
 def test_agg_stacked_pallas_is_one_launch_and_casts_back(card_fp32):
     from fedml_tpu_torch.ops import pallas_ops as po
 
@@ -1209,9 +1309,11 @@ def test_agg_stacked_pallas_is_one_launch_and_casts_back(card_fp32):
             "n": [torch.randn(6, 4, generator=gen).to(card_fp32)]}
     w = torch.tensor([3, 1, 4, 1, 5, 9], device=card_fp32)
     before = po.LAUNCHES["pallas_ops.weighted_average"]
+    by_value = po.WAVG_FORMS["by_value"]
     got = po.agg_stacked_pallas(tree, w)
     torch.cuda.synchronize()
     assert po.LAUNCHES["pallas_ops.weighted_average"] == before + 1
+    assert po.WAVG_FORMS["by_value"] == by_value + 1
     flat = torch.cat([tree["b"].float(), tree["n"][0],
                       tree["w"].reshape(6, -1)], dim=1)
     ref = po.weighted_average_flat_reference(flat, w)
@@ -1434,6 +1536,18 @@ def test_pallas_ops_kernels_refuse_what_they_do_not_take(card):
         po.weighted_average_flat(torch.zeros(8, 3, device=card).t(), w)
     with pytest.raises(ValueError, match=r"\[C, D\]"):
         po.weighted_average_flat(x, torch.ones(4, device=card))
+    with pytest.raises(TypeError, match="agg_stacked_pallas"):
+        po.agg_stacked_pallas({"a": x, "b": x.long()}, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        po.agg_stacked_pallas({"a": x, "b": torch.zeros(8, 3,
+                                                        device=card).t()}, w)
+    with pytest.raises(ValueError, match="one C"):
+        po.agg_stacked_pallas({"a": x, "b": torch.zeros(4, 8,
+                                                        device=card)}, w)
+    with pytest.raises(ValueError, match="at least one value"):
+        po.agg_stacked_pallas({"a": x[:, :0], "b": x[:, :0]}, w)
+    with pytest.raises(ValueError, match=r"leaves \[C, \.\.\.\]"):
+        po.agg_stacked_pallas({"a": x}, torch.ones(4, device=card))
     v, m = torch.zeros(8, device=card), torch.zeros(8, device=card,
                                                    dtype=torch.int32)
     with pytest.raises(TypeError, match="int32"):

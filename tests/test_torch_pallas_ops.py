@@ -18,7 +18,10 @@ Tolerances, by what each side computes:
   element; the largest difference seen is 4.3 · 2^-24 of that sum, at
   C = 10 (float32 weights, whose normaliser may differ from JAX's float32
   sum in its last bit).  The normalised weights of integer sample counts
-  are JAX's bit for bit.
+  are JAX's bit for bit.  The tree form's plan (``weighted_average_plan``:
+  its launch form on either side of the by-value capacity, the leaves'
+  offsets, the units' first leaves) is held exactly; its trees make every
+  D mod 4 and every row offset occur.
 * Kernel 8 (quantize-mask): bit for bit, on values past the int32 range
   (±40000 · 2^16), ±inf, NaN, exact halves ``2^-17·(2k+1)`` and masks near
   2^32 − 1 whose add wraps.
@@ -174,6 +177,124 @@ def test_agg_stacked_pallas_matches_jax(dtype):
         got["w"].float().numpy(), np.asarray(jnp.asarray(ref["w"],
                                                          jnp.float32)),
         rtol=2.0 ** -7 if dtype == "bfloat16" else 1e-5, atol=1e-5)
+
+
+#: leaf sizes (values a client) for the tree form's plan, and its form
+PLAN_CASES = {
+    "one_leaf_among_empty": ([0, 777, 0], "flat"),
+    "at_leaf_capacity": ([3] * po.LEAF_CAPACITY, "by_value"),
+    "one_leaf_under": ([3] * (po.LEAF_CAPACITY - 1), "by_value"),
+    "one_leaf_over": ([3] * (po.LEAF_CAPACITY + 1), "table"),
+    "at_unit_capacity": ([po.UNIT_CAPACITY * po.UNIT_COLS - 5, 5],
+                         "by_value"),
+    "one_unit_over": ([po.UNIT_CAPACITY * po.UNIT_COLS - 5, 6], "table"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_weighted_average_plan_chooses_the_form(name):
+    """One leaf with values goes flat; up to the by-value capacity (leaves
+    and units of ``UNIT_COLS`` columns, one 8 KB kernel parameter) by
+    value; past it, the device table."""
+    sizes, form = PLAN_CASES[name]
+    assert po.weighted_average_form(sizes) == form
+    assert po.weighted_average_plan(sizes).total == sum(sizes)
+
+
+def test_weighted_average_plan_fits_resnet56_by_value():
+    """The ResNet-56 variable tree (287 leaves, 860,026 values) goes by
+    value in one launch."""
+    sizes = [16, 32, 64, 432, 512, 640, 2048, 2304, 4608, 9216, 18432,
+             36864, 10]
+    counts = [76, 76, 76, 1, 1, 1, 1, 18, 1, 17, 1, 17, 1]
+    layout = [n for n, k in zip(sizes, counts) for _ in range(k)]
+    assert len(layout) == 287 and sum(layout) == 860026
+    plan = po.weighted_average_plan(layout)
+    assert plan.form == "by_value" and len(plan.first) == 217
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_weighted_average_plan_offsets_and_units(seed):
+    """The leaves follow one another in the output; the kept leaves are
+    those with values; unit u's first leaf holds column u · UNIT_COLS
+    (3,968: 31 warp tiles of 128 columns, or 32 of 124)."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(n) for n in rng.integers(0, 3 * po.UNIT_COLS, 40)]
+    sizes[::7] = [0] * len(sizes[::7])
+    sizes += [1, 2, 3]
+    plan = po.weighted_average_plan(sizes)
+    assert plan.offsets == tuple(np.concatenate([[0], np.cumsum(sizes)]))
+    assert plan.kept == tuple(i for i, n in enumerate(sizes) if n)
+    assert len(plan.first) == -(-sum(sizes) // po.UNIT_COLS)
+    for u, k in enumerate(plan.first):
+        leaf = plan.kept[k]
+        col = u * po.UNIT_COLS
+        assert plan.offsets[leaf] <= col < plan.offsets[leaf + 1]
+
+
+#: (leaf pointers, bfloat16 flags, output offsets, C) -> the kernel's
+#: RowFit: every row on a 4-element chunk of the output (0), on one or
+#: halfway (1), anywhere (2)
+FIT_CASES = {
+    "aligned": ([512, 1024], [0, 0], [0, 16, 32], 10, 0),
+    "half_offset": ([512, 1032], [0, 0], [0, 16, 32], 10, 1),
+    "odd_offset": ([512, 1028], [0, 0], [0, 16, 32], 10, 2),
+    "even_rows": ([512, 1024], [0, 0], [0, 10, 20], 10, 1),
+    "odd_rows": ([512, 1024], [0, 0], [0, 16, 33], 10, 2),
+    "odd_rows_one_client": ([512, 1024], [0, 0], [0, 16, 33], 1, 0),
+    "bf16_half": ([512, 1028], [0, 1], [0, 16, 32], 10, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIT_CASES))
+def test_row_fit_of_leaves(name):
+    """Row k of leaf l starts (ptr_l / element size − offset_l + k · n_l)
+    mod 4 elements past a chunk; the fit is the worst of them."""
+    ptr, bf16, starts, c, fit = FIT_CASES[name]
+    assert po._row_fit(np.asarray(ptr, np.int64), np.asarray(bf16, np.uint8),
+                       np.asarray(starts, np.int64), c) == fit
+
+
+def _offset_tree(c, dtype, rng):
+    """Leaves of 1-7, 33, 130 and 1,027 values a client in shapes of one
+    to three dimensions: every D mod 4 and every start mod 4 of a leaf's
+    rows in the concatenation."""
+    sizes = [1, 2, 3, 4, 5, 6, 7, 130, 33, 1027, 3, 2]
+    shapes = [(n,) if i % 3 == 0 else (1, n) if i % 3 == 1 else (n, 1, 1)
+              for i, n in enumerate(sizes)]
+    tree = {f"l{i:02d}": rng.standard_normal((c,) + shape)
+            .astype(np.float32) for i, shape in enumerate(shapes)}
+    jt = {k: jnp.asarray(v, dtype) for k, v in tree.items()}
+    tt = {k: _t(np.asarray(v, np.float32)).to(getattr(torch, dtype))
+          for k, v in jt.items()}
+    return jt, tt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [3, 8])
+def test_agg_stacked_pallas_at_every_offset_matches_jax(c, dtype):
+    """Trees whose leaves make every D mod 4 and every row offset occur:
+    each leaf against JAX's ``agg_stacked_pallas`` in interpret mode within
+    ``C · 2^-24 · Σ_c |wn_c x_c|``, bfloat16 leaves within one bfloat16
+    step of it."""
+    rng = np.random.default_rng(10 * c + len(dtype))
+    jt, tt = _offset_tree(c, dtype, rng)
+    w = rng.integers(1, 600, c).astype(np.int32)
+    want = jpo.agg_stacked_pallas(jt, jnp.asarray(w), interpret=True)
+    got = po.agg_stacked_pallas(tt, _t(w))
+    wn = po.normalized_weights(_t(w)).numpy()
+    assert sorted(got) == sorted(tt)
+    for k in tt:
+        assert got[k].dtype == tt[k].dtype
+        assert tuple(got[k].shape) == tuple(tt[k].shape[1:])
+        g = got[k].float().numpy()
+        want_k = np.asarray(jnp.asarray(want[k], jnp.float32))
+        x = np.asarray(jnp.asarray(jt[k], jnp.float32)).reshape(c, -1)
+        if dtype == "float32":
+            bound = _wavg_bound(wn, x).reshape(g.shape)
+            assert (np.abs(g - want_k) <= bound).all(), k
+        else:
+            np.testing.assert_allclose(g, want_k, rtol=2.0 ** -7, atol=1e-6)
 
 
 # ---------------------------------------------------------------- kernel 8
