@@ -16,7 +16,9 @@ raises and ends the run with a non-zero exit:
 3. kernels — each kernel against its plain PyTorch version on the card, on
    the unit-test cases and at the main paths' shapes, with the tolerance:
    the weighted reduce (also on a column range), the four channels of the
-   fused epilogue, the async ``fold_buffer`` (its ``none`` channel), the
+   fused epilogue (also with the step's row read from the device table,
+   adam's t by value and from a device tensor at t = 1, 2, 3 and 300), the
+   async ``fold_buffer`` (its ``none`` channel), the
    flash-attention forward (o, l and m; causal and not, T of 32, 80, 200
    and 512, head dims 16, 32, 64 and 128, float32 and bfloat16, keys of
    another length than the queries, scores of large magnitude, no key or
@@ -43,7 +45,8 @@ raises and ends the run with a non-zero exit:
 4. timing — at the paths' shapes, each kernel, its plain version and, where
    one exists, one PyTorch library call, beside the least time the card
    could take (the flash forward at both language-model paths' eval
-   shapes, bfloat16 and float32, and at 512 tokens);
+   shapes, bfloat16 and float32, and at 512 tokens; adam's fused epilogue
+   also in the fused rounds' launch, its step count on the device);
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
    and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
@@ -114,11 +117,26 @@ raises and ends the run with a non-zero exit:
     GPT-2-small-width parameter dict quantized by ``quantize_lm_params``
     (``benchmarks/serve_bench.py``'s widths: dim 768, 12 layers, decode
     batch 64), at M = 64 and M = 1, with the device kernels of each step
-    counted in a ``torch.profiler`` trace (one a product).
+    counted in a ``torch.profiler`` trace (one a product);
+16. main path, fused rounds — the north-star config of phase 6 with
+    ``fused_rounds: true`` through the same five steps, FedAvg and then
+    FedOpt (server adam at 1e-3), 8 rounds in two chunks of 4 with an eval
+    after each: round 1 runs uncaptured, the round is captured once into a
+    CUDA graph and replayed for the other 7.  It prints the capture and
+    instantiate seconds, the graph's nodes by kind and its epilogue
+    kernels by name (one weighted reduce per dtype group on FedAvg; one
+    fused epilogue and one weighted reduce on FedOpt), rounds/s over the
+    replayed chunk beside phases 6-7's, peak memory, the device's busy
+    share over one replayed chunk, and the card; it checks that a replayed
+    chunk raises nothing under ``torch.cuda.set_sync_debug_mode("error")``
+    and, under deterministic algorithms, that 2 replayed FedOpt rounds of
+    ResNet-56 equal 2 uncaptured runs of the same round body, bit for bit.
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9, 11, 12, 14 and 15) is driven with the kernels' launch counts set to 0 just
-before it and read just after.  Then one JSON line of per-kernel numbers and, last, the
+9, 11, 12, 14, 15 and 16) is driven with the kernels' launch counts set to
+0 just before it and read just after (phase 16: its uncaptured round and
+its capture; replays launch nothing from Python, and the graph's nodes are
+counted instead).  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -138,6 +156,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+
 import fedml_tpu_torch
 from fedml_tpu_torch import FedMLRunner
 from fedml_tpu_torch.core.mpc import secagg
@@ -150,6 +169,7 @@ from fedml_tpu_torch.ml.engine.model_bundle import (
 from fedml_tpu_torch.models.cv import CIFARResNet
 from fedml_tpu_torch.models.nlp import TinyTransformerLM
 from fedml_tpu_torch.ops import cuda_build, epilogue
+from fedml_tpu_torch.ops.cuda_graphs import graph_nodes
 from fedml_tpu_torch.ops import pallas_attention as attn
 from fedml_tpu_torch.ops import pallas_mc_conv as mcc
 from fedml_tpu_torch.ops import pallas_ops as po
@@ -171,9 +191,13 @@ from fedml_tpu_torch.utils.serialization import estimate_nbytes
 from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
 from fedml_tpu_torch.utils.weights import tree_from_module
 
+# cuBLAS's deterministic workspace, for phase 16's bit-for-bit check under
+# torch.use_deterministic_algorithms (read when cuBLAS is first used)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 15
+PHASES = 16
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -347,14 +371,19 @@ def card_peaks(name):
 
 
 # ---------------------------------------------------------------- phases
+def _smi_line():
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def device_phase():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi_line()
     name = torch.cuda.get_device_name(0)
     phase(1, "device", f"{name}, {torch.cuda.device_count()} card(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -542,6 +571,47 @@ def kernel_phase(dev):
           "v): " + ", ".join(f"{k} {v:.2e}" for k, v in ferrs.items())
           + f" (tolerance: f32 global {F32_TOL}, bf16 global {BF16_TOL}); "
           f"round shape: columns [0, {p_main}) of [10, {d_main}]")
+
+    # the step's row read from a device table (step_rows), as the paths
+    # launch it: adam's t by value (the per-round path) and from a device
+    # tensor (the fused rounds), at t = 1, 2, 3 and 300; the other
+    # channels' one row.  Held against the plain version with the step
+    # rounded on the host, at the round shape
+    cases = {c[0]: c for c in _fused_cases(p_main, d_main)}
+    rerrs = {}
+    for opt in CHANNELS:
+        forms = (("device", "value") if opt == "adam" else ("table",))
+        for t in ((1, 2, 3, 300) if opt == "adam" else (1,)):
+            for form in forms:
+                x, g, w, s_, spec, st = _fused_inputs(cases[f"round_{opt}"],
+                                                      gen, dev)
+                steps = epilogue.step_rows(s_, spec, 300, dev)
+                ref_st = _clone(st)
+                if opt == "adam":
+                    ref_st["t"] = st["t"] = t - 1
+                    if form == "device":
+                        st["t"] = torch.tensor(t - 1, dtype=torch.int64,
+                                               device=dev)
+                got, got_st = epilogue.fused_epilogue(g, x, w, s_, spec, st,
+                                                      steps=steps)
+                torch.cuda.synchronize()
+                ref, ref_st = epilogue.fused_epilogue_reference(
+                    g, x, w, s_, spec, ref_st)
+                label = f"{opt} t {t} {form}"
+                err = _err(got, ref, F32_TOL, f"fused_epilogue {label}")
+                for k in ("m", "v"):
+                    if ref_st is not None and k in ref_st:
+                        err = max(err, _err(got_st[k], ref_st[k], F32_TOL,
+                                            f"fused_epilogue {label} {k}"))
+                if opt == "adam":
+                    check(int(got_st["t"]) == t, f"fused_epilogue {label}: "
+                          f"t {got_st['t']}")
+                rerrs[label] = err
+    phase(3, "kernels", "fused_epilogue with the step's row from the device "
+          "table vs plain version with the step rounded on the host (max "
+          "over out, m, v; adam's t by value and from a device tensor): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rerrs.items())
+          + f" (tolerance {F32_TOL}); round shape")
 
     # the async fold at the main shape: the mix channel's path
     stale = torch.tensor([1.0, 0.5, 0.25, 1.0, 0.125, 0.5, 1.0, 0.5, 0.25,
@@ -797,9 +867,22 @@ def timing_phase(dev, p_main, d_main, card):
                 st["v"].uniform_()
                 st["t"] = 4
         st_plain = _clone(st)
+        steps = epilogue.step_rows(1.0, spec, 4096, dev)
+        st_dev = _clone(st)
+        if st_dev is not None and "t" in st_dev:
+            st_dev["t"] = torch.tensor(4, dtype=torch.int64, device=dev)
 
         def kernel():
-            epilogue.fused_epilogue(g, cols, w, 1.0, spec, st, out=res)
+            # the per-round path's launch: the step by value, its row read
+            # from the device table
+            epilogue.fused_epilogue(g, cols, w, 1.0, spec, st, out=res,
+                                    steps=steps)
+
+        def kernel_dev():
+            # the fused rounds' launch: the count advanced on the device
+            # (one add) and read by the kernel
+            epilogue.fused_epilogue(g, cols, w, 1.0, spec, st_dev, out=res,
+                                    steps=steps)
 
         def plain():
             epilogue.fused_epilogue_reference(g, cols, w, 1.0, spec,
@@ -823,7 +906,14 @@ def timing_phase(dev, p_main, d_main, card):
                         f"{lib_err:.2e})")
         p1 = _time_ms(plain, flush, hide=True)
         k1 = _time_ms(kernel, flush, hide=True)
+        dev_note = ""
+        if opt == "adam":
+            d1 = _time_ms(kernel_dev, flush, hide=True)
         k2 = _time_ms(kernel, flush, hide=True)
+        if opt == "adam":
+            d2 = _time_ms(kernel_dev, flush, hide=True)
+            dev_note = (f", the fused rounds' launch (t on the device, its "
+                        f"add included) {d1:.4f} / {d2:.4f} ms")
         p2 = _time_ms(plain, flush, hide=True)
         streams = {"none": 0, "sgd": 0, "momentum": 2, "adam": 4}[opt]
         nbytes = (c + 2 + streams) * p_main * 4 + c * 4
@@ -835,8 +925,8 @@ def timing_phase(dev, p_main, d_main, card):
                         bound_by=bound_by)
         phase(4, "timing", f"fused_epilogue.{opt if opt != 'none' else 'mix'}"
               f" at columns [0, {p_main}) of [10, {d_main}] f32, cold L2, "
-              f"host hidden, median of 50: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain "
+              f"host hidden, median of 50: kernel (the step's row from the "
+              f"device table) {k1:.4f} / {k2:.4f} ms{dev_note}, plain "
               f"{p1:.4f} / {p2:.4f} ms, library {lib_note}, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB) -> "
               f"{bound_ms / ms:.1%} of the bound")
@@ -1635,10 +1725,12 @@ def fed_llm_parity_phase(dev):
     return launches
 
 
-def _drive(config, unit="samples"):
+def _drive(config, unit="samples", rounds=ROUNDS, dataset=None):
     """Run ``config`` through ``init → device → data → model →
     FedMLRunner(...).run()`` with the launch counts set to 0 just before
-    and read just after; check the rounds, the globals and test_acc."""
+    and read just after; check the rounds, the globals and test_acc.
+    ``dataset``: the data step's result of an earlier drive of the same
+    data config, taken instead of loading it again."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1646,7 +1738,8 @@ def _drive(config, unit="samples"):
     t0 = time.perf_counter()
     args = fedml_tpu_torch.init(fedml_tpu_torch.Config(**config))
     device = fedml_tpu_torch.device.get_device(args)
-    dataset = fedml_tpu_torch.data.load(args)
+    if dataset is None:
+        dataset = fedml_tpu_torch.data.load(args)
     t_data = time.perf_counter() - t0
     bundle = fedml_tpu_torch.model.create(args, dataset[-1])
     runner = FedMLRunner(args, device, dataset, bundle)
@@ -1658,7 +1751,7 @@ def _drive(config, unit="samples"):
     total = time.perf_counter() - t0
 
     hist = api.round_history
-    check(len(hist) == ROUNDS, f"{len(hist)} rounds ran, not {ROUNDS}")
+    check(len(hist) == rounds, f"{len(hist)} rounds ran, not {rounds}")
     for r in hist:
         print(f"    round {r['round']}: train_loss {r['train_loss']:.6f}, "
               f"{r['train_seconds']:.3f} s, {r['samples_trained']:.0f} "
@@ -1679,8 +1772,12 @@ def _drive(config, unit="samples"):
           f"test_acc {final['test_acc']}")
     return dict(args=args, api=api, final=final, launches=launches,
                 secs=secs, steady=len(steady) / steady_secs, samples=samples,
-                t_data=t_data, total=total,
+                t_data=t_data, total=total, dataset=dataset,
                 peak=torch.cuda.max_memory_allocated())
+
+
+#: the per-round path's rounds/s after round 0, by main-path label
+PER_ROUND_RATE = {}
 
 
 def main_path_phase(n, label, **overrides):
@@ -1704,6 +1801,7 @@ def main_path_phase(n, label, **overrides):
                  f"[0, {cols.start}) + weighted_reduce over "
                  f"[{cols.start}, {cols.stop})")
     args = run["args"]
+    PER_ROUND_RATE[label] = run["steady"]
     phase(n, "main path", f"Parrot {label} {args.model} {args.compute_dtype}"
           f", {api.n_total} clients, {api.n_buckets} strata, {ROUNDS} rounds: "
           f"{ROUNDS / run['secs']:.3f} rounds/s over all rounds "
@@ -1714,7 +1812,7 @@ def main_path_phase(n, label, **overrides):
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
           + f"{extra}, data {run['t_data']:.1f} s, whole phase "
           f"{run['total']:.1f} s")
-    return launches, api
+    return launches, api, run["dataset"]
 
 
 def lm_main_path_phase(n):
@@ -2725,13 +2823,6 @@ def _device_kernels(fn):
           f"{TRACE_ATTEMPTS} traces")
 
 
-#: the kinds of the nodes of a captured CUDA graph (the driver's
-#: CUgraphNodeType), for reports
-GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
-                    4: "graph", 5: "empty", 6: "wait event",
-                    7: "event record", 10: "mem alloc", 11: "mem free"}
-
-
 def _graph_nodes(fn):
     """The kinds of the nodes of the CUDA graph that one call of ``fn``
     captures (after a warm-up call): every device operation the call
@@ -2744,21 +2835,7 @@ def _graph_nodes(fn):
     with torch.cuda.graph(graph):
         fn()
     torch.cuda.synchronize()
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * max(count.value, 1))()
-    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    kinds = []
-    for i in range(count.value):
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                    ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    kinds = [kind for kind, _ in graph_nodes(graph)]
     graph.reset()
     return kinds
 
@@ -3206,6 +3283,227 @@ def po_main_path_phase(n, dev):
     return launches
 
 
+#: the fused path: the north-star config in chunks of FUSED_FREQ rounds (an
+#: eval after each), FUSED_ROUNDS in all; round 1 runs uncaptured
+FUSED_ROUNDS = 8
+FUSED_FREQ = 4
+FUSED_CONFIG = dict(MAIN_CONFIG, comm_round=FUSED_ROUNDS,
+                    frequency_of_the_test=FUSED_FREQ, fused_rounds=True)
+#: the bit-for-bit check's cohort: ResNet-56 in bfloat16 on the north-star
+#: data, 2 clients a round in 2 size strata capped at 0.25 (a north-star
+#: round's 10 clients cost 6 s a round uncaptured; capped, each stratum's
+#: larger clients still draw a rotating window)
+FUSED_CHECK = dict(client_num_per_round=2, hetero_buckets=2,
+                   hetero_bucket_cap=0.25)
+
+
+def _fused_drive(label, dataset=None, **overrides):
+    """The fused path through the five steps: the launches of its
+    uncaptured round and of the capture (replays do not count), the
+    captured round's nodes by kind and its epilogue kernels, rounds/s of
+    the replayed chunks."""
+    run = _drive(dict(FUSED_CONFIG, **overrides), rounds=FUSED_ROUNDS,
+                 dataset=dataset)
+    api, launches = run["api"], run["launches"]
+    stats = api.fused_stats
+    chunks = stats["chunks"]
+    check([c["rounds"] for c in chunks] == [FUSED_FREQ] * 2
+          and [c["replays"] for c in chunks] == [FUSED_FREQ - 1, FUSED_FREQ],
+          f"chunks {chunks}")
+    evals = [m["round"] for m in api.metrics_history]
+    check(evals == [FUSED_FREQ - 1, FUSED_ROUNDS - 1], f"evals at {evals}")
+    replayed = [c for c in chunks if c["replays"] == c["rounds"]]
+    rate = (sum(c["rounds"] for c in replayed)
+            / sum(c["seconds"] for c in replayed))
+    t_nodes = time.perf_counter()
+    nodes = api.fused_graph_nodes()
+    t_nodes = time.perf_counter() - t_nodes
+    kinds = {}
+    for kind, _ in nodes:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    names = [n for kind, n in nodes if kind == "kernel"]
+    reduce = sum("weighted_reduce_kernel" in n for n in names)
+    fused = sum("fused_epilogue_kernel" in n for n in names)
+    groups = len(api.global_vars)
+    fedopt = api.algo == "FedOpt"
+    # the uncaptured round and the capture each launch the round's kernels
+    want = (1, 1) if fedopt else (groups, 0)
+    check((reduce, fused) == want,
+          f"the captured round holds {reduce} weighted-reduce and {fused} "
+          f"fused-epilogue nodes, not {want}")
+    check(launches["weighted_reduce"] == 2 * want[0]
+          and launches["fused_epilogue"] == 2 * want[1]
+          and launches["fused_epilogue.adam"] == 2 * want[1],
+          f"the uncaptured round and the capture launched {launches}")
+    extra = ""
+    if fedopt:
+        t = api.server_state["opt_state"][torch.float32]["t"]
+        check(isinstance(t, torch.Tensor) and int(t) == FUSED_ROUNDS,
+              f"adam's step count {t}")
+        extra = f", adam t {int(t)} on the device"
+    final, args = run["final"], run["args"]
+    phase(16, "main path", f"Parrot {label} fused rounds, {args.model} "
+          f"{args.compute_dtype}, {api.n_total} clients, {api.n_buckets} "
+          f"strata, {FUSED_ROUNDS} rounds in chunks of {FUSED_FREQ} (round 1 "
+          f"uncaptured, then one capture, {sum(c['replays'] for c in chunks)}"
+          f" replays): capture {stats['capture_s']:.2f} s, instantiate "
+          f"{stats['instantiate_s']:.2f} s; {rate:.3f} rounds/s over the "
+          f"replayed chunk (host clock, ended by reading its losses) against "
+          f"the per-round path's {PER_ROUND_RATE.get(label, float('nan')):.3f}"
+          f" (phases 6-7, after round 0); the round's graph: {len(nodes)} "
+          f"nodes (" + ", ".join(f"{k} {v}" for k, v in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + f"; read in {t_nodes:.1f} s), epilogue kernels {reduce} "
+          f"weighted_reduce, {fused} fused_epilogue; launches outside "
+          f"replays "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"{extra}; final test_acc {final['test_acc']:.4f} test_loss "
+          f"{final['test_loss']:.4f}, peak memory {run['peak'] / 2**30:.2f} "
+          f"GiB, data {run['t_data']:.1f} s, whole drive {run['total']:.1f} s")
+    return launches, api, run["dataset"]
+
+
+def trace_fused_chunk(api, rounds=1):
+    """The device's busy share over one replayed chunk of ``rounds``
+    rounds, as ``trace_phase`` measures it: the chunk timed once plainly
+    on the host clock (ended by reading its losses), and once under
+    ``torch.profiler`` for the device time of the activities it records,
+    traced again where a trace records none (as ``_device_kernels``).
+    The traced chunk's own wall is no yardstick: the profiler slows the
+    launch of a graph of ~290k nodes on the host (in one run to 1.87 s
+    from 0.79).  The activities are summed from the profiler's raw
+    records, not its parsed event tree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+
+    def chunk():
+        api._fused_chunk(rounds).cpu()
+
+    t0 = time.perf_counter()
+    chunk()
+    wall = time.perf_counter() - t0
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        time.sleep(TRACE_PAD_S)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            chunk()
+            time.sleep(TRACE_PAD_S)
+            t_stop = time.perf_counter()
+        t_read = time.perf_counter()
+        t_stop = t_read - t_stop
+        spans = [e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        t_read = time.perf_counter() - t_read
+        if spans:
+            break
+    check(bool(spans), f"the profiler recorded no device activity in "
+          f"{TRACE_ATTEMPTS} traces of a replayed chunk")
+    busy = sum(spans) / 1e9
+    phase(16, "trace", f"one replayed chunk of {rounds} round(s) of the "
+          f"FedOpt path: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
+          f"{len(spans)} device activities (trace {attempt}); "
+          f"{time.perf_counter() - t_phase:.1f} s, of which the profiler's "
+          f"stop {t_stop:.1f} s and reading its records {t_read:.1f} s")
+    return busy / wall
+
+
+def _round_state(api):
+    opt = api.server_state.get("opt_state", {})
+    return {"global": {dt: f.clone() for dt, f in api.global_vars.items()},
+            "opt": {dt: {k: v.clone() for k, v in (st or {}).items()
+                         if isinstance(v, torch.Tensor)}
+                    for dt, st in opt.items()},
+            "gen": api._fgen.get_state()}
+
+
+def _set_round_state(api, state):
+    for dt, f in api.global_vars.items():
+        f.copy_(state["global"][dt])
+    for dt, st in api.server_state.get("opt_state", {}).items():
+        for k, v in state["opt"][dt].items():
+            st[k].copy_(v)
+    api._fgen.set_state(state["gen"])
+
+
+def fused_checks(api, dataset):
+    """A replayed chunk under sync-debug mode "error"; then, under
+    ``torch.use_deterministic_algorithms(True)``, 2 replayed rounds of a
+    FedOpt ParrotAPI on ResNet-56 against 2 uncaptured runs of the same
+    body from the same globals, server state and generator state, bit for
+    bit (metrics, globals, adam's m, v and t, the generator's state)."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows = api._fused_chunk(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(api._last_replays == 2 and bool(torch.isfinite(rows).all()),
+          f"the chunk did not replay: {api._last_replays} replays, metrics "
+          f"{rows}")
+
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(
+        **dict(FUSED_CONFIG, **FEDOPT, **FUSED_CHECK)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.manual_seed(0)
+        bundle = fedml_tpu_torch.model.create(args, dataset[-1])
+        small = ParrotAPI(args, None, dataset, bundle)
+        small.run_rounds_fused(1)
+        start = _round_state(small)
+        replayed = small._fused_chunk(2).clone()
+        after = _round_state(small)
+        _set_round_state(small, start)
+        rows = []
+        for _ in range(2):
+            small._fused_round()
+            rows.append(small._rm.clone())
+        eager = _round_state(small)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = {"metrics": torch.equal(replayed, torch.stack(rows)),
+            "generator": torch.equal(after["gen"], eager["gen"])}
+    for dt in after["global"]:
+        same[f"global {dt}"] = torch.equal(after["global"][dt],
+                                           eager["global"][dt])
+        for k, v in after["opt"][dt].items():
+            same[f"{k} {dt}"] = torch.equal(v, eager["opt"][dt][k])
+    check(all(same.values()), f"replayed and uncaptured rounds differ: "
+          f"{same}")
+    moved = not torch.equal(after["global"][torch.float32],
+                            start["global"][torch.float32])
+    check(moved, "the replayed rounds did not move the globals")
+    phase(16, "checks", f"a replayed chunk of 2 rounds raised nothing under "
+          f"sync-debug mode 'error'; under deterministic algorithms, 2 "
+          f"replayed FedOpt rounds of ResNet-56 bf16 ({small.k} clients a "
+          f"round in {small.n_buckets} strata capped at {small.bucket_cap}) "
+          f"equal 2 uncaptured runs of "
+          f"the round body from the same state, bit for bit: "
+          + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                      for k, v in same.items())
+          + f"; adam t {int(after['opt'][torch.float32]['t'])}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def fused_phase(name, dataset=None):
+    """Phase 16: the fused rounds on the north-star config, FedAvg then
+    FedOpt (server adam), then the trace and the checks.  ``dataset``:
+    phases 6-7's data (the same config's), taken instead of loading it
+    again."""
+    avg_launches, api, dataset = _fused_drive("FedAvg", dataset)
+    api = None
+    opt_launches, api, _ = _fused_drive("FedOpt (server adam)", dataset,
+                                        **FEDOPT)
+    trace_fused_chunk(api)
+    fused_checks(api, dataset)
+    print(f"    card: {_smi_line()}", flush=True)
+    return avg_launches, opt_launches
+
+
 def main():
     name, _ = device_phase()
     # the port's device choice: the card, with TF32 off
@@ -3232,7 +3530,8 @@ def main():
     # each main path's API is dropped before the next run, so that one's
     # peak memory is its own
     avg_launches = main_path_phase(6, "FedAvg")[0]
-    opt_launches, api = main_path_phase(7, "FedOpt (server adam)", **FEDOPT)
+    opt_launches, api, main_data = main_path_phase(7, "FedOpt (server adam)",
+                                                   **FEDOPT)
     trace_resnet(api)
     api = None
     lm_launches, api = lm_main_path_phase(9)
@@ -3244,6 +3543,8 @@ def main():
     last = None
     mc_launches = mc_main_path_phase(14, name, dev)
     po_launches = po_main_path_phase(15, dev)
+    fused_avg, fused_opt = fused_phase(name, main_data)
+    main_data = None
     # launches, each from its own path: the weighted reduce from both
     # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
@@ -3261,9 +3562,12 @@ def main():
             cs_launches["wire_compression.dequantize"],
         "flash_attention": lm_launches["flash_attention"],
         "weighted_reduce": (avg_launches["weighted_reduce"]
-                            + opt_launches["weighted_reduce"]),
+                            + opt_launches["weighted_reduce"]
+                            + fused_avg["weighted_reduce"]
+                            + fused_opt["weighted_reduce"]),
         "adam": (opt_launches["fused_epilogue.adam"]
-                 + lm_launches["fused_epilogue.adam"]),
+                 + lm_launches["fused_epilogue.adam"]
+                 + fused_opt["fused_epilogue.adam"]),
         "momentum": parity["FedOpt sgd momentum 0.9"][
             "fused_epilogue.momentum"],
         "sgd": parity["FedOpt sgd"]["fused_epilogue.sgd"],

@@ -23,8 +23,18 @@
 // (a double rounding for bfloat16).  Every channel then works in float32 and
 // casts the result to the global's type; m and v are float32.  s is the
 // mixing rate (1 on the Parrot path, server_lr in fold_buffer); lr, mu, b1,
-// b2, eps, 1-b1, 1-b2 and the bias corrections bc = 1 - b^t arrive from the
-// host as float32, rounded there exactly as the JAX package rounds them.
+// b2, eps, 1-b1, 1-b2 and the bias corrections bc = 1 - b^t are float32,
+// rounded on the host exactly as the JAX package rounds them.
+//
+// The step's scalars are read from device memory, as the Pallas kernel reads
+// its p_ref: row r of a [n_rows, kNumParams] float32 table, r = min(t,
+// n_rows) - 1 for the step t (0 without a step count: adam's t, already
+// advanced to this step), which comes by value or from device memory.  From
+// device memory (the int64 count the caller keeps there), a launch captured
+// into a CUDA graph takes each replay's own step: nothing of the step is
+// frozen into the launch's parameters.  The last warp of each block reads
+// the row into shared memory while warp 0 reads the weights, so the two
+// reads overlap.
 // This source is built with -fmad=false (see ops/cuda_build.py): no product
 // is contracted into an fma, so each operation rounds where the plain
 // version's does; the reduce head's fmaf is written out and stays.
@@ -61,6 +71,15 @@ struct Params {
 };
 constexpr int kNumParams = 10;
 
+// the step's row of the table: the first kNumParams floats of shared memory;
+// the step is *t where t is given, else `step`
+struct StepRows {
+  const float* rows;
+  int64_t n_rows;
+  int64_t step;
+  const long long* t;
+};
+
 struct Args {
   const void* x;
   int64_t ld;
@@ -71,16 +90,31 @@ struct Args {
   float* m;
   float* v;
   int64_t P;
-  Params p;
+  StepRows step;
 };
+
+// lanes 0..kNumParams-1 of the block's last warp copy the step's row into
+// sp; the barriers of normalise_weights publish it
+__device__ __forceinline__ void load_step(const StepRows& step, float* sp) {
+  const int lane = static_cast<int>(threadIdx.x) - (kThreads - 32);
+  if (lane < 0 || lane >= kNumParams) return;
+  const int64_t t = step.t != nullptr ? *step.t : step.step;
+  const int64_t r = t < 1 ? 0 : (t > step.n_rows ? step.n_rows : t) - 1;
+  sp[lane] = step.rows[r * kNumParams + lane];
+}
 
 template <typename Tx, typename Tg, int VEC, int OPT>
 __global__ void __launch_bounds__(kThreads)
 fused_epilogue_kernel(const Tx* __restrict__ x, int64_t ld_packs,
                       const float* __restrict__ w, int C, const Tg* g,
-                      Tg* out, float* m, float* v, Params p, int64_t groups) {
+                      Tg* out, float* m, float* v, StepRows step,
+                      int64_t groups) {
   extern __shared__ float smem[];
-  normalise_weights(w, C, smem);
+  load_step(step, smem);
+  normalise_weights(w, C, smem + kNumParams);
+  const Params p{smem[0], smem[1], smem[2], smem[3], smem[4],
+                 smem[5], smem[6], smem[7], smem[8], smem[9]};
+  const float* wn = smem + kNumParams;
 
   const Pack<Tx, VEC>* src = reinterpret_cast<const Pack<Tx, VEC>*>(x);
   const Pack<Tg, VEC>* gsrc = reinterpret_cast<const Pack<Tg, VEC>*>(g);
@@ -91,7 +125,7 @@ fused_epilogue_kernel(const Tx* __restrict__ x, int64_t ld_packs,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < groups; i += stride) {
     float acc[VEC];
-    accumulate<Tx, VEC>(src, ld_packs, i, smem, C, acc);
+    accumulate<Tx, VEC>(src, ld_packs, i, wn, C, acc);
     const Pack<Tg, VEC> gp = gsrc[i];
     Pack<float, VEC> mm, vv;
     if constexpr (OPT == kMomentum || OPT == kAdam) mm = mp[i];
@@ -140,16 +174,16 @@ int launch(const Args& a, cudaStream_t stream) {
                    aligned16(a.g) && aligned16(a.out) && state_aligned;
   const int64_t groups = vec ? a.P / kVec : a.P;
   const int blocks = grid_for(groups);
-  const size_t smem = smem_bytes(a.C);
+  const size_t smem = smem_bytes(a.C) + kNumParams * sizeof(float);
   const Tx* x = static_cast<const Tx*>(a.x);
   const Tg* g = static_cast<const Tg*>(a.g);
   Tg* out = static_cast<Tg*>(a.out);
   if (vec) {
     fused_epilogue_kernel<Tx, Tg, kVec, OPT><<<blocks, kThreads, smem, stream>>>(
-        x, a.ld / kVec, a.w, a.C, g, out, a.m, a.v, a.p, groups);
+        x, a.ld / kVec, a.w, a.C, g, out, a.m, a.v, a.step, groups);
   } else {
     fused_epilogue_kernel<Tx, Tg, 1, OPT><<<blocks, kThreads, smem, stream>>>(
-        x, a.ld, a.w, a.C, g, out, a.m, a.v, a.p, groups);
+        x, a.ld, a.w, a.C, g, out, a.m, a.v, a.step, groups);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -193,23 +227,23 @@ int fedml_fused_epilogue_num_params() { return kNumParams; }
 // x: [C, P] in the type named by x_dtype, row stride ld >= P elements;
 // w: [C] float32; g and out: [P] contiguous in the type named by g_dtype
 // (out may be g); m: [P] float32 for momentum and adam, v: [P] float32 for
-// adam, both updated in place (null otherwise).  host_params: kNumParams
-// floats on the host, in the order of struct Params.  All tensors on
-// `device`.
+// adam, both updated in place (null otherwise).  rows: [n_rows, kNumParams]
+// float32 in the order of struct Params; the kernel takes row min(s, n_rows)
+// - 1 (row 0 for s < 1) of the step s = *t where t, an int64 in device
+// memory, is given, else s = step.  All on `device`.
 int fedml_fused_epilogue(const void* x, long long ld, const float* w, int C,
                          const void* g, void* out, float* m, float* v,
                          long long P, int opt, int x_dtype, int g_dtype,
-                         const float* host_params, int device, void* stream) {
+                         const float* rows, long long n_rows, long long step,
+                         const long long* t, int device, void* stream) {
   if (C < 1 || C > fedml::kMaxClients || P < 1 || ld < P ||
-      host_params == nullptr || ((opt == kMomentum || opt == kAdam) && !m) ||
-      (opt == kAdam && !v)) {
+      rows == nullptr || n_rows < 1 ||
+      ((opt == kMomentum || opt == kAdam) && !m) || (opt == kAdam && !v)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* h = host_params;
-  Args a{x, ld, w, C, g, out, m, v, P,
-         Params{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8], h[9]}};
+  Args a{x, ld, w, C, g, out, m, v, P, StepRows{rows, n_rows, step, t}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case fedml::kF32:

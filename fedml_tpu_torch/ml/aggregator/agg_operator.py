@@ -16,7 +16,7 @@ pairs, the trees nested dicts of tensors (``utils/tree.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple, TypeVar
+from typing import Any, Dict, List, Optional, Sequence, Tuple, TypeVar
 
 import numpy as np
 import torch
@@ -28,8 +28,9 @@ from ...utils.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 K = TypeVar("K")
 
 
-def agg_stacked(stacked: Dict[K, torch.Tensor],
-                weights: torch.Tensor) -> Dict[K, torch.Tensor]:
+def agg_stacked(stacked: Dict[K, torch.Tensor], weights: torch.Tensor,
+                out: Optional[Dict[K, torch.Tensor]] = None
+                ) -> Dict[K, torch.Tensor]:
     """Weighted average over a leading client axis, for each ``[C, ...]``
     tensor of ``stacked``; ``weights`` ([C]) need not be normalised —
     masked-out clients carry weight 0.
@@ -37,8 +38,14 @@ def agg_stacked(stacked: Dict[K, torch.Tensor],
     Accumulation runs in float32 and float results come back in their input
     dtype; non-float inputs give float32.  The Parrot engine passes one
     ``[C, D]`` buffer per dtype, so each round is one kernel launch per
-    dtype (``ops/epilogue.py``)."""
-    return {k: weighted_reduce(v, weights) for k, v in stacked.items()}
+    dtype (``ops/epilogue.py``).  ``out``: tensors under the same keys to
+    write the results into (the Parrot engine's global buffers, whose
+    addresses a captured round keeps); returned."""
+    if out is None:
+        return {k: weighted_reduce(v, weights) for k, v in stacked.items()}
+    for k, v in stacked.items():
+        weighted_reduce(v, weights, out=out[k])
+    return out
 
 
 def mix_global(global_tree: Dict[K, torch.Tensor],

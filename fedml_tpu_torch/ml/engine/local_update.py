@@ -7,11 +7,21 @@ in the server step), ``make_batches`` and ``build_eval_step``.
 ``batches`` is the fixed-shape layout of the JAX package: ``{"x": [nb, B,
 ...], "y": [nb, B], "mask": [nb, B]}`` with zero-mask padding.  The JAX
 engine runs every batch and keeps parameters and BatchNorm state unchanged
-where ``any(mask)`` is false (``jnp.where(valid, new, old)``); here the
-caller knows each batch's validity on the host, and a fully padded batch is
-skipped, which leaves the same state and statistics.  A partly padded batch
-runs whole: BatchNorm's batch statistics cover its zero rows, and the mask
-enters only the loss.
+where ``any(mask)`` is false (``jnp.where(valid, new, old)``).  The port has
+both bodies:
+
+* the host-skip body (the per-round path): the caller knows each batch's
+  validity on the host, and a fully padded batch is skipped, which leaves
+  the same state and statistics;
+* the gated body (``gated=True``, the fused rounds): every batch runs, and
+  after each step one ``torch.where`` per dtype over the flat buffer
+  (parameters and BatchNorm statistics together) keeps the old state where
+  the device flag ``valid[b]`` is false, as the metrics keep their sums.
+  Nothing is read on the host, so a CUDA graph can hold it.  It gives the
+  host-skip body's bits.
+
+A partly padded batch runs whole: BatchNorm's batch statistics cover its
+padding rows, and the mask enters only the loss.
 
 The local update trains the bundle's module in place: the caller loads the
 global variables into it first (``FlatVariables.load``) and reads the
@@ -79,7 +89,8 @@ def _step_generator(rng: Optional[torch.Generator],
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
+def build_local_update(bundle: ModelBundle, cfg: Any,
+                       gated: bool = False) -> Callable:
     """Returns ``local_update(variables, batches, valid=None, rng=None) ->
     metrics``.
 
@@ -88,7 +99,12 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
     whether any mask entry is set (computed from ``batches["mask"]`` when
     omitted, which waits for the device).  ``rng``, a host
     ``torch.Generator``, seeds each step's dropout: a model that trains with
-    dropout needs it."""
+    dropout needs it.
+
+    ``gated``: the gated body, ``local_update(variables, batches, valid)``
+    with ``valid`` the ``[nb]`` bool tensor of the batches' flags on the
+    batches' device; its metrics are all tensors, ``local_steps`` the count
+    of valid steps.  It takes no dropout generator."""
     algo = str(getattr(cfg, "federated_optimizer", FED_OPT_FEDAVG))
     if algo not in _PLAIN_SGD:
         raise NotImplementedError(
@@ -131,7 +147,39 @@ def build_local_update(bundle: ModelBundle, cfg: Any) -> Callable:
                 "n_samples": n,
                 "local_steps": steps}
 
-    return local_update
+    def gated_update(variables: FlatVariables,
+                     batches: Dict[str, torch.Tensor],
+                     valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        params, flat = variables.params, variables.flat
+        mask_all = batches["mask"]
+        zero = torch.zeros((), device=mask_all.device)
+        loss_sum, correct, n, steps = (zero.clone() for _ in range(4))
+        prev = {dt: torch.empty_like(f) for dt, f in flat.items()}
+        for _ in range(epochs):
+            for b in range(mask_all.shape[0]):
+                ok = valid[b]
+                for dt, f in flat.items():
+                    prev[dt].copy_(f)
+                x, y, m = batches["x"][b], batches["y"][b], mask_all[b]
+                logits = bundle.apply(x, train=True)
+                loss = bundle.loss(logits, y, m)
+                grads = torch.autograd.grad(loss, params)
+                sgd_step(params, list(grads))
+                with torch.no_grad():
+                    for dt, f in flat.items():
+                        f.copy_(torch.where(ok, f, prev[dt]))
+                    nv = bundle.valid_count(y, m)
+                    loss_sum += torch.where(ok, loss.detach(), zero) * nv
+                    correct += bundle.correct_count(logits.detach(), y, m)
+                    n += nv
+                    steps += ok
+        denom = torch.clamp(n, min=1.0)
+        return {"train_loss": loss_sum / denom,
+                "train_acc": correct / denom,
+                "n_samples": n,
+                "local_steps": steps}
+
+    return gated_update if gated else local_update
 
 
 def build_eval_step(bundle: ModelBundle) -> Callable:

@@ -33,6 +33,16 @@ Contracts (the JAX package's):
   is.  ``s`` is the mixing rate (``server_lr`` of ``fold_buffer``; 1 on the
   Parrot path).
 
+The fused kernel reads its step's scalars from device memory, as the Pallas
+kernel reads its ``p_ref``: row ``t`` of a float32 table that ``step_rows``
+fills on the host with ``_step``'s own float32 rounding.  Adam's step count
+``t`` is a Python int (the per-round path: the kernel takes ``t`` by value)
+or lives in a device tensor (``opt_state["t"]``, the fused rounds: the
+wrapper advances it on the device and the kernel reads it), so a launch
+captured into a CUDA graph takes each replay's own step.  Without a table
+the wrapper rounds the step on the host and the kernel reads a one-row
+table of it.
+
 Where it runs: a CUDA tensor launches the kernel, or the wrapper raises on
 what the kernel does not take.  CPU tensors take the plain versions,
 ``weighted_reduce_reference`` and ``fused_epilogue_reference``; that is the
@@ -151,7 +161,8 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
                                "from the wrapper's")
     else:
         lib.fedml_fused_epilogue.argtypes = [vp, ll, vp, i, vp, vp, vp, vp,
-                                             ll, i, i, i, vp, i, vp]
+                                             ll, i, i, i, vp, ll, ll, vp, i,
+                                             vp]
         lib.fedml_fused_epilogue.restype = i
         lib.fedml_fused_epilogue_max_clients.argtypes = []
         lib.fedml_fused_epilogue_max_clients.restype = i
@@ -273,7 +284,7 @@ def weighted_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
 # ------------------------------------------------------------ fused epilogue
 class _Step(NamedTuple):
     """The kernel's float32 scalars, in the order of ``struct Params``, and
-    adam's new step count."""
+    adam's new step count (an int, or the device tensor that holds it)."""
 
     s: float
     lr: float
@@ -285,37 +296,157 @@ class _Step(NamedTuple):
     eps: float
     bc1: float
     bc2: float
-    t: Optional[int]
+    t: Any
+
+
+#: the scalars of one step, a row of the kernel's table
+STEP_COLS = len(_Step._fields) - 1
 
 
 def _f32(x: Any) -> float:
     return float(np.float32(x))
 
 
-def _step(server_lr: Any, spec: EpilogueSpec,
-          opt_state: Optional[Dict[str, Any]]) -> _Step:
-    """Check ``spec`` against ``opt_state`` and round the step's scalars to
-    float32 on the host the way the JAX package rounds them: Python floats
-    (``1.0 − b1`` computed in float64 first) met by float32 arrays, and
-    adam's bias corrections ``1 − b^t`` in float32 after ``t`` advances."""
+def _scalars(server_lr: Any, spec: EpilogueSpec,
+             t: Optional[int]) -> Tuple[float, ...]:
+    """Step ``t``'s scalars rounded to float32 on the host the way the JAX
+    package rounds them: Python floats (``1.0 − b1`` computed in float64
+    first) met by float32 arrays, and adam's bias corrections ``1 − b^t`` in
+    float32 (1 without a step count)."""
+    bc1 = bc2 = 1.0
+    if t is not None:
+        tf = np.float32(t)
+        bc1 = float(np.float32(1.0) - np.power(np.float32(spec.b1), tf))
+        bc2 = float(np.float32(1.0) - np.power(np.float32(spec.b2), tf))
+    return (_f32(float(server_lr)), _f32(spec.lr), _f32(spec.momentum),
+            _f32(spec.b1), _f32(1.0 - spec.b1), _f32(spec.b2),
+            _f32(1.0 - spec.b2), _f32(spec.eps), bc1, bc2)
+
+
+def _check_spec(spec: EpilogueSpec, opt_state: Optional[Dict[str, Any]]
+                ) -> None:
     if spec.opt not in _OPT_CODES:
         raise ValueError(f"unknown epilogue optimizer {spec.opt!r}")
     if spec.opt in ("momentum", "adam") and opt_state is None:
         raise ValueError(f"{spec.opt} epilogue needs opt_state "
                          f"(init_opt_state)")
-    t = None
-    bc1 = bc2 = 1.0
-    if spec.opt == "adam":
-        t = int(opt_state["t"]) + 1
-        tf = np.float32(t)
-        bc1 = float(np.float32(1.0) - np.power(np.float32(spec.b1), tf))
-        bc2 = float(np.float32(1.0) - np.power(np.float32(spec.b2), tf))
-    return _Step(_f32(float(server_lr)), _f32(spec.lr), _f32(spec.momentum),
-                 _f32(spec.b1), _f32(1.0 - spec.b1), _f32(spec.b2),
-                 _f32(1.0 - spec.b2), _f32(spec.eps), bc1, bc2, t)
 
 
-def _new_state(opt: str, opt_state: Optional[Dict[str, Any]], t: Optional[int]
+def _step(server_lr: Any, spec: EpilogueSpec,
+          opt_state: Optional[Dict[str, Any]]) -> _Step:
+    """Check ``spec`` against ``opt_state`` and round the step's scalars on
+    the host (``_scalars``), adam's after ``t`` advances."""
+    _check_spec(spec, opt_state)
+    t = int(opt_state["t"]) + 1 if spec.opt == "adam" else None
+    return _Step(*_scalars(server_lr, spec, t), t)
+
+
+class StepRows(NamedTuple):
+    """The fused kernel's per-step scalars in device memory: ``rows[i]``
+    holds step ``i + 1``'s (``_scalars``), for the mixing rate
+    ``server_lr`` and ``spec``.  Without a step count (every channel but
+    adam) one row serves every step.  ``final``: the last row also holds
+    every later step — adam's bias corrections reached 1 in float32 — so
+    the kernel's clamp to the last row is exact; otherwise the table covers
+    steps ``1 … len(rows)`` only."""
+
+    rows: torch.Tensor
+    final: bool
+    server_lr: float
+    spec: EpilogueSpec
+
+    def covers(self, t: int) -> bool:
+        """Whether step ``t``'s row is in the table."""
+        return self.final or t <= self.rows.shape[0]
+
+
+def step_rows(server_lr: Any, spec: EpilogueSpec, n_steps: int,
+              device: Any) -> StepRows:
+    """The table for steps ``1 … n_steps`` (cut where adam's bias
+    corrections reach 1, past which every row is the same), filled on the
+    host with ``_step``'s rounding and copied to ``device`` once."""
+    if spec.opt not in _OPT_CODES:
+        raise ValueError(f"unknown epilogue optimizer {spec.opt!r}")
+    if spec.opt != "adam":
+        rows, final = [_scalars(server_lr, spec, None)], True
+    else:
+        rows, final = [], False
+        for t in range(1, max(1, int(n_steps)) + 1):
+            rows.append(_scalars(server_lr, spec, t))
+            if rows[-1][-2:] == (1.0, 1.0):
+                final = True
+                break
+    return StepRows(torch.tensor(rows, dtype=torch.float32, device=device),
+                    final, float(server_lr), spec)
+
+
+#: one-row device tables of steps rounded on the host, by (device, row)
+_host_rows: Dict[Tuple[str, Tuple[float, ...]], torch.Tensor] = {}
+_HOST_ROWS_CACHE = 64
+
+
+def _host_row(scalars: Tuple[float, ...], device: torch.device
+              ) -> torch.Tensor:
+    key = (str(device), tuple(scalars))
+    row = _host_rows.get(key)
+    if row is None:
+        row = torch.tensor([scalars], dtype=torch.float32, device=device)
+        if len(_host_rows) >= _HOST_ROWS_CACHE:
+            _host_rows.pop(next(iter(_host_rows)))
+        _host_rows[key] = row
+    return row
+
+
+def _device_count(spec: EpilogueSpec, opt_state: Optional[Dict[str, Any]]
+                  ) -> Optional[torch.Tensor]:
+    """Adam's step count where it lives in a tensor, else None."""
+    if spec.opt == "adam" and isinstance(opt_state.get("t"), torch.Tensor):
+        return opt_state["t"]
+    return None
+
+
+def _check_steps(steps: Optional[StepRows], server_lr: Any,
+                 spec: EpilogueSpec) -> StepRows:
+    if steps is None:
+        raise ValueError("fused_epilogue: a step count in a tensor needs "
+                         "the step table (steps=step_rows(...))")
+    if steps.spec != spec or steps.server_lr != float(server_lr):
+        raise ValueError(f"fused_epilogue: the step table is for "
+                         f"server_lr {steps.server_lr} and {steps.spec}, "
+                         f"not {float(server_lr)} and {spec}")
+    return steps
+
+
+def _row_of(t: int, steps: StepRows) -> int:
+    """The table row the kernel takes for step ``t``."""
+    return min(max(int(t), 1), steps.rows.shape[0]) - 1
+
+
+def _step_source(server_lr: Any, spec: EpilogueSpec,
+                 opt_state: Optional[Dict[str, Any]],
+                 steps: Optional[StepRows]
+                 ) -> Tuple[Optional[torch.Tensor], Optional[int], Any]:
+    """Where the step's scalars come from, and adam's new count: ``(table,
+    step, new t)``, the kernel taking row ``step`` of the table, or the
+    row of the count in device memory where ``step`` is None (the count
+    advanced here, in place); no table where none was given with a count on
+    the host (the host then rounds the step, ``_step``)."""
+    t_dev = _device_count(spec, opt_state)
+    if t_dev is None and steps is None:
+        return None, 0, None
+    rows = _check_steps(steps, server_lr, spec).rows
+    if t_dev is not None:
+        return rows, None, t_dev.add_(1)
+    if spec.opt != "adam":
+        return rows, 0, None
+    t = int(opt_state["t"]) + 1
+    if not steps.covers(t):
+        raise ValueError(f"fused_epilogue: the step table covers "
+                         f"{rows.shape[0]} steps, not step {t}")
+    return rows, t, t
+
+
+def _new_state(opt: str, opt_state: Optional[Dict[str, Any]], t: Any
                ) -> Optional[Dict[str, Any]]:
     if opt == "momentum":
         return {"m": opt_state["m"]}
@@ -329,16 +460,25 @@ def fused_epilogue_reference(global_flat: torch.Tensor,
                              server_lr: Any = 1.0,
                              spec: EpilogueSpec = NONE_SPEC,
                              opt_state: Optional[Dict[str, Any]] = None, *,
-                             out: Optional[torch.Tensor] = None
+                             out: Optional[torch.Tensor] = None,
+                             steps: Optional[StepRows] = None
                              ) -> Tuple[torch.Tensor,
                                         Optional[Dict[str, Any]]]:
     """The plain version of ``fused_epilogue``, with its signature and its
     in-place state update: the JAX package's jnp fallback
-    (``fedml_tpu/ops/epilogue.py:356-372``) op for op."""
-    st = _step(server_lr, spec, opt_state)
+    (``fedml_tpu/ops/epilogue.py:356-372``) op for op.  Given ``steps``,
+    the step's scalars are the kernel's row of it; a step count in a tensor
+    advances in place."""
+    _check_spec(spec, opt_state)
     if not global_flat.dtype.is_floating_point:
         return (_into(out, weighted_reduce_reference(stacked, weights)),
                 opt_state)
+    rows, step, t = _step_source(server_lr, spec, opt_state, steps)
+    if rows is None:
+        st = _step(server_lr, spec, opt_state)
+    else:
+        row = _row_of(int(t) if step is None else step, steps)
+        st = _Step(*rows[row].tolist(), t)
     acc = _reduce_f32(stacked, weights).to(_out_dtype(stacked.dtype)).float()
     gf = global_flat.float()
     if spec.opt == "none":
@@ -367,7 +507,8 @@ def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
                    weights: torch.Tensor, server_lr: Any = 1.0,
                    spec: EpilogueSpec = NONE_SPEC,
                    opt_state: Optional[Dict[str, Any]] = None, *,
-                   out: Optional[torch.Tensor] = None
+                   out: Optional[torch.Tensor] = None,
+                   steps: Optional[StepRows] = None
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """The whole round epilogue in one pass: weighted reduce → ``server_lr``
     mix / pseudo-gradient → optimizer channel → cast back.
@@ -381,12 +522,23 @@ def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
     In place: ``m`` and ``v`` of ``opt_state`` are updated in place (the
     returned state holds the same tensors), and ``out`` — a new tensor when
     omitted — may be ``global_flat`` itself.  Each element is read and
-    written by one thread, so no second copy of the state is needed."""
+    written by one thread, so no second copy of the state is needed.
+
+    The step's scalars come from ``steps`` (``step_rows`` for this
+    ``server_lr`` and ``spec``, covering the step), row ``t``: adam's ``t``
+    is a Python int, passed to the kernel by value, or an int64 tensor on
+    the card, advanced here in place by a device add and read by the kernel
+    from device memory — nothing on the host reads the count, so the launch
+    can be captured into a CUDA graph.  Without ``steps`` (a Python ``t``
+    or no count) the host rounds the step and copies its row to the card,
+    once per distinct row."""
     if _on_cpu(global_flat, stacked, weights, out,
-               *((opt_state or {}).get(k) for k in ("m", "v"))):
+               *(v for v in (opt_state or {}).values()
+                 if isinstance(v, torch.Tensor))):
         return fused_epilogue_reference(global_flat, stacked, weights,
-                                        server_lr, spec, opt_state, out=out)
-    st = _step(server_lr, spec, opt_state)
+                                        server_lr, spec, opt_state, out=out,
+                                        steps=steps)
+    _check_spec(spec, opt_state)
     if not global_flat.dtype.is_floating_point:
         # mix_global's contract: a non-float global takes the aggregate as
         # it is, uncast, and the optimizer never touches it
@@ -443,21 +595,35 @@ def fused_epilogue(global_flat: torch.Tensor, stacked: torch.Tensor,
     if not 1 <= c <= max_c or p < 1:
         raise ValueError(f"fused_epilogue kernel takes 1..{max_c} clients "
                          f"and a non-empty global, not [{c}, {p}]")
-    scalars = st[:-1]
-    if lib.fedml_fused_epilogue_num_params() != len(scalars):
+    if lib.fedml_fused_epilogue_num_params() != STEP_COLS:
         raise RuntimeError("fused_epilogue: the kernel's scalar count "
                            "differs from the wrapper's")
-    host = (ctypes.c_float * len(scalars))(*scalars)
+    t_dev = _device_count(spec, opt_state)
+    if t_dev is not None and (t_dev.device != dev or t_dev.dim() != 0
+                              or t_dev.dtype != torch.int64):
+        raise TypeError(f"fused_epilogue kernel takes adam's t as a 0-d "
+                        f"int64 tensor on {dev}, not {t_dev.dtype} "
+                        f"{tuple(t_dev.shape)} on {t_dev.device}")
+    rows, step, new_t = _step_source(server_lr, spec, opt_state, steps)
+    if rows is None:
+        st = _step(server_lr, spec, opt_state)
+        rows, new_t = _host_row(st[:-1], dev), st.t
+    if (rows.device != dev or rows.dtype != torch.float32
+            or rows.dim() != 2 or rows.shape[1] != STEP_COLS
+            or not rows.is_contiguous()):
+        raise ValueError(f"fused_epilogue kernel takes a contiguous float32 "
+                         f"[n, {STEP_COLS}] step table on {dev}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fedml_fused_epilogue(
         stacked.data_ptr(), ld, weights.data_ptr(), c, global_flat.data_ptr(),
         out.data_ptr(), m.data_ptr() if m is not None else None,
         v.data_ptr() if v is not None else None, p, _OPT_CODES[spec.opt],
-        x_code, g_code, ctypes.addressof(host), _device_index(stacked),
+        x_code, g_code, rows.data_ptr(), rows.shape[0], step or 0,
+        new_t.data_ptr() if step is None else None, _device_index(stacked),
         stream)
     _check_launch(rc, lib, "fused_epilogue")
     LAUNCHES[f"fused_epilogue.{spec.opt}"] += 1
-    return out, _new_state(spec.opt, opt_state, st.t)
+    return out, _new_state(spec.opt, opt_state, new_t)
 
 
 # ---------------------------------------------------------------- delta fold

@@ -1,10 +1,11 @@
 """Parrot — federated simulation on one device.
 
 Port of ``fedml_tpu/simulation/parrot/parrot_api.py``: ``bucket_plan``, the
-FedAvg and FedOpt arms of ``build_aggregate`` and ``ParrotAPI``'s per-round
-path — the uniform round and the size-bucketed round.
+FedAvg and FedOpt arms of ``build_aggregate``, ``ParrotAPI``'s per-round
+path — the uniform round and the size-bucketed round — and its fused
+multi-round path (``run_rounds_fused``, ``fused_rounds: true``).
 
-A round here:
+A round of the per-round path:
 
 * samples clients on the host;
 * gathers each sampled client's padded batch grid from the device-resident
@@ -20,12 +21,34 @@ A round here:
   per dtype; FedOpt runs the server step on the parameter columns with the
   fused-epilogue kernel and reduces the statistics columns with the
   weighted-reduce kernel, two launches per dtype (``build_aggregate``).
+  The new global model is written into the global buffers, and the server
+  state into its own tensors; the fused epilogue reads its step's row from
+  a device table (``ops/epilogue.step_rows``).
 
-Deviation from the reference: the bucketed round draws its clients and its
+The fused rounds (``run_rounds_fused``) run the same round with nothing
+read on the host, in chunks of ``FUSED_CHUNK_ROUNDS`` rounds, the host
+reading the chunk's losses once.  Clients and window starts are drawn on
+the device; every batch of a client's grid runs, gated by its device flag
+(``build_local_update(..., gated=True)``); the index matrices, strata,
+weights and metrics stay on the device.  On a card each round is one replay
+of a CUDA graph: the first round of a ``ParrotAPI`` runs uncaptured (it
+builds the kernels and warms the libraries), then the round is captured
+once, with its generator registered so that every replay draws anew; a
+capture that fails raises.  On the CPU the same round body runs
+uncaptured, which is how the tests hold it to the JAX package's scan.
+
+Deviations from the reference: the bucketed round draws its clients and its
 window starts with a seeded ``torch.Generator`` (``seed + 17``), where the
 JAX package draws them with ``jax.random``; the distribution is the same
 (quota ``q`` per stratum without replacement, uniform window start mod the
-client's size), the draws are not.  The uniform round's
+client's size), the draws are not.  The fused rounds draw from a
+``torch.Generator`` on the round's device seeded ``seed + 23``, where the
+JAX package splits ``PRNGKey(seed + 23)``: a uniform round takes the first
+``k`` of a permutation of the ``n`` clients (the order of ``n`` random
+62-bit keys), a stratum the first ``q`` of a permutation of its members,
+plus a window start in ``[0, 2^30)`` per client where it is capped — the
+same distributions as ``jax.random.permutation`` and ``randint``, other
+bits.  The per-round path's uniform
 ``np.random.seed(round)`` draw is the reference's, exactly.  Dropout draws
 from a host generator seeded ``seed + 31``, one seed per training step
 (``ml/engine/local_update.py``), where the JAX package splits its round
@@ -38,8 +61,13 @@ a ``[nb, B]`` sequence mask, and clients partition by their first label
 token when no row map was stashed.
 
 Not ported yet: the SCAFFOLD/FedDyn/FedNova/Mime/FedProx arms, robust
-aggregation, the fused multi-round scan, the AOT cache and compile-ahead,
-mesh/remesh/resize, checkpoint-resume and the flight recorder.
+aggregation, the AOT cache and compile-ahead, mesh/remesh/resize,
+checkpoint-resume and the flight recorder; in the fused rounds, dropout and
+the unfused adam and yogi server steps (their step counts are host state).
+
+To run the fused rounds, set ``fused_rounds: true`` in the config (with
+``device_type: cpu`` on the CPU; the card by default): ``train()`` then runs
+chunks of ``frequency_of_the_test`` rounds, an eval after each.
 """
 
 from __future__ import annotations
@@ -65,10 +93,13 @@ from ...ml.engine.optimizers import (
     apply_updates,
     build_server_optimizer,
 )
+from ...ops.cuda_graphs import graph_nodes
 from ...ops.epilogue import (
+    StepRows,
     fused_epilogue,
     init_opt_state,
     spec_from_args,
+    step_rows,
     weighted_reduce,
 )
 from ...utils.weights import from_flax_variables, to_flax_variables
@@ -148,7 +179,13 @@ def build_aggregate(args: Any, algo: str, n_total: int,
       then ``server_tx`` on the pseudo-gradient ``global − aggregate`` of
       the parameter columns.
 
-    In both, the BatchNorm statistics take the plain weighted mean."""
+    In both, the BatchNorm statistics take the plain weighted mean.
+
+    ``aggregate`` writes the new global model into ``global_vars``' buffers
+    and the server state into its tensors (the unfused arm copies its
+    update's state back), so a round captured into a CUDA graph finds
+    them where it left them; ``steps`` is the fused channel's step table
+    (``ops/epilogue.step_rows``)."""
     if algo not in (FED_OPT_FEDAVG, FED_OPT_FEDOPT):
         raise NotImplementedError(
             f"Parrot aggregation for {algo!r} is not ported yet; the port "
@@ -157,56 +194,73 @@ def build_aggregate(args: Any, algo: str, n_total: int,
         raise NotImplementedError("robust_agg is not ported yet")
     fused_opt = spec_from_args(args) if algo == FED_OPT_FEDOPT else None
 
-    def server_step(global_vars, opt_state, new_vars, weights):
+    def server_step(global_vars, opt_state, new_vars, weights, steps):
         if fused_opt is None:
             agg_vars = agg_stacked(new_vars, weights)
             for dt in opt_state:
                 cols = flat_vars.params_range(dt)
                 g = global_vars[dt][cols]
-                updates, opt_state[dt] = server_tx.update(
-                    g - agg_vars[dt][cols], opt_state[dt])
+                updates, new = server_tx.update(g - agg_vars[dt][cols],
+                                                opt_state[dt])
+                opt_state[dt] = _into_state(opt_state[dt], new)
                 agg_vars[dt][cols] = apply_updates(g, updates)
-            return agg_vars
-        agg_vars = {}
+            for dt, a in agg_vars.items():
+                global_vars[dt].copy_(a)
+            return
         for dt, x in new_vars.items():
+            g = global_vars[dt]
             if dt not in opt_state:
-                agg_vars[dt] = weighted_reduce(x, weights)
+                weighted_reduce(x, weights, out=g)
                 continue
-            out = torch.empty_like(global_vars[dt])
             cols, stats = flat_vars.params_range(dt), flat_vars.stats_range(dt)
             _, opt_state[dt] = fused_epilogue(
-                global_vars[dt][cols], x[:, cols], weights, 1.0, fused_opt,
-                opt_state[dt], out=out[cols])
+                g[cols], x[:, cols], weights, 1.0, fused_opt, opt_state[dt],
+                out=g[cols], steps=steps)
             if stats.start < stats.stop:
-                weighted_reduce(x[:, stats], weights, out=out[stats])
-            agg_vars[dt] = out
-        return agg_vars
+                weighted_reduce(x[:, stats], weights, out=g[stats])
 
     def aggregate(global_vars: Dict[torch.dtype, torch.Tensor],
                   server_state: Dict[str, Any],
                   new_vars: Dict[torch.dtype, torch.Tensor],
-                  metrics: Dict[str, torch.Tensor], weights: torch.Tensor
+                  metrics: Dict[str, torch.Tensor], weights: torch.Tensor,
+                  steps: Optional[StepRows] = None
                   ) -> Tuple[Dict[torch.dtype, torch.Tensor], Dict[str, Any],
                              Dict[str, torch.Tensor]]:
         new_state = dict(server_state)
         if algo == FED_OPT_FEDOPT:
             new_state["opt_state"] = dict(server_state["opt_state"])
-            agg_vars = server_step(global_vars, new_state["opt_state"],
-                                   new_vars, weights)
+            server_step(global_vars, new_state["opt_state"], new_vars,
+                        weights, steps)
         else:
-            agg_vars = agg_stacked(new_vars, weights)
+            agg_stacked(new_vars, weights, out=global_vars)
         wsum = torch.clamp(weights.sum(), min=1e-12)
         round_metrics = {
             "train_loss": (metrics["train_loss"] * weights).sum() / wsum,
             "train_acc": (metrics["train_acc"] * weights).sum() / wsum,
             "samples": weights.sum(),
         }
-        return agg_vars, new_state, round_metrics
+        return global_vars, new_state, round_metrics
 
     return aggregate
 
 
+def _into_state(old: Dict[str, Any], new: Dict[str, Any]) -> Dict[str, Any]:
+    """An optimizer update's state written into ``old``'s tensors (other
+    entries, such as optax's step count, replaced); returns ``old``."""
+    for k, v in new.items():
+        if isinstance(v, torch.Tensor) and isinstance(old.get(k),
+                                                      torch.Tensor):
+            old[k].copy_(v)
+        else:
+            old[k] = v
+    return old
+
+
 class ParrotAPI:
+    #: rounds per chunk of ``run_rounds_fused``; the host reads the chunk's
+    #: metrics once.  The JAX package's scan length; an instance may lower it
+    FUSED_CHUNK_ROUNDS = 64
+
     def __init__(self, args: Any, device: Optional[torch.device],
                  dataset: Tuple, bundle: Any,
                  initial_variables: Optional[Dict[str, Any]] = None) -> None:
@@ -221,8 +275,6 @@ class ParrotAPI:
         (self.train_num, self.test_num, self.train_global, self.test_global,
          self.local_num_dict, self.train_data_local_dict,
          self.test_data_local_dict, self.class_num) = dataset
-        if getattr(args, "fused_rounds", False):
-            raise NotImplementedError("fused_rounds is not ported yet")
 
         self.n_total = int(args.client_num_in_total)
         self.k = int(args.client_num_per_round)
@@ -265,8 +317,13 @@ class ParrotAPI:
         # server optimizer maps onto a channel, optax's state otherwise
         self.server_state: Dict[str, Any] = {}
         self.server_tx: Optional[ServerOptimizer] = None
+        #: the fused channel of FedOpt's server step, its step table and
+        #: adam's step count as the host counts it
+        self._spec = None
+        self._steps: Optional[StepRows] = None
+        self._t_host = 0
         if self.algo == FED_OPT_FEDOPT:
-            spec = spec_from_args(args)
+            spec = self._spec = spec_from_args(args)
             if spec is None:
                 self.server_tx = build_server_optimizer(args)
             opt_state = {}
@@ -289,6 +346,21 @@ class ParrotAPI:
         self.metrics_history: List[Dict[str, Any]] = []
         #: every round: train_loss, train_seconds, samples_trained
         self.round_history: List[Dict[str, Any]] = []
+
+        # ---- fused rounds: built at the first run_rounds_fused
+        self._fgen: Optional[torch.Generator] = None
+        self._graph: Optional[Any] = None
+        self._chunk_rm: Optional[torch.Tensor] = None
+        self._last_replays = 0
+        #: capture and instantiate seconds of the round's graph, and per
+        #: chunk its rounds, replays and host seconds
+        self.fused_stats: Dict[str, Any] = {"chunks": []}
+        if getattr(args, "fused_rounds", False):
+            self._check_fused()
+            if getattr(args, "checkpoint_dir", None):
+                raise NotImplementedError(
+                    "checkpoint_dir with fused_rounds: checkpointing is not "
+                    "ported yet (port item A11)")
 
     def _build_buckets(self) -> None:
         """Split clients into size strata (``bucket_plan``); each round
@@ -359,15 +431,16 @@ class ParrotAPI:
         capn = nb_b * self.bs
         rows = idx_mat[client_rows]                         # [K, full_cap]
         n_i = torch.clamp(sizes[client_rows], min=1)[:, None]
-        j = torch.arange(capn, dtype=torch.int64)[None, :]
+        j = torch.arange(capn, dtype=torch.int64, device=rows.device)[None, :]
         start = start.reshape(-1, 1).to(torch.int64) % n_i
         pos = torch.where(n_i > capn, (start + j) % n_i, j)
         return self._grid_from_idx(data, torch.gather(rows, 1, pos), nb_b)
 
     def _grid_from_idx(self, data, idx, nb_b):
-        """``idx`` ([K, nb_b·bs] host rows, -1 = padding) → device grids
-        ``x``/``y``/``mask`` plus ``valid``, the host [K, nb_b] flags of
-        batches holding any real sample."""
+        """``idx`` ([K, nb_b·bs] rows, -1 = padding) → device grids
+        ``x``/``y``/``mask`` plus ``valid``, the [K, nb_b] flags of batches
+        holding any real sample, where ``idx`` lies (the host, on the
+        per-round path; the device, in the fused rounds)."""
         k, bs = idx.shape[0], self.bs
         dev = data["x"].device
         safe = torch.clamp(idx, min=0).to(dev)
@@ -403,19 +476,26 @@ class ParrotAPI:
             parts.append((batches, b["gids"][rows]))
         return self._train_clients(parts)
 
-    def _train_clients(self, parts) -> Dict[str, torch.Tensor]:
+    def _train_clients(self, parts, gated: bool = False
+                       ) -> Dict[str, torch.Tensor]:
         """Train every client of ``parts`` ((batch grids, client ids) per
         stratum) from the global model into its row of ``self.stacked``,
-        then aggregate into the new global model."""
+        then aggregate into the new global model.  ``gated``: the gated
+        local update on the grids' device flags (the fused rounds), else the
+        host-skip one on flags read on the host."""
         per_client = []
         c = 0
         for batches, ids in parts:
             for i in range(ids.shape[0]):
                 self.vars.load(self.global_vars)
-                m = self.local_update(
-                    self.vars,
-                    {k: batches[k][i] for k in ("x", "y", "mask")},
-                    batches["valid"][i].tolist(), rng=self.dropout_rng)
+                grid = {k: batches[k][i] for k in ("x", "y", "mask")}
+                if gated:
+                    m = self.gated_update(self.vars, grid,
+                                          batches["valid"][i])
+                else:
+                    m = self.local_update(self.vars, grid,
+                                          batches["valid"][i].tolist(),
+                                          rng=self.dropout_rng)
                 for dt, f in self.vars.flat.items():
                     self.stacked[dt][c].copy_(f)
                 per_client.append(m)
@@ -426,9 +506,33 @@ class ParrotAPI:
         self.global_vars, self.server_state, rm = self.aggregate(
             self.global_vars, self.server_state,
             {dt: s[:c] for dt, s in self.stacked.items()}, metrics,
-            self.n_samples[ids])
+            self.n_samples[ids], steps=self._steps)
         rm["samples_trained"] = metrics["n_samples"].sum()
         return rm
+
+    def _ready_steps(self, more: int, on_device: bool) -> None:
+        """For FedOpt's fused channel: a step table that covers ``more``
+        further steps, and with ``on_device`` (the fused rounds) adam's
+        step count moved onto the device from the host int a fresh or
+        replaced state holds.  A new table drops the captured round, which
+        reads the old one."""
+        if self._spec is None:
+            return
+        for st in self.server_state["opt_state"].values():
+            if (st is not None and "t" in st
+                    and not isinstance(st["t"], torch.Tensor)):
+                self._t_host = int(st["t"])
+                if on_device:
+                    st["t"] = torch.tensor(self._t_host, dtype=torch.int64,
+                                           device=self.device)
+        need = self._t_host + int(more)
+        if self._steps is None or not self._steps.covers(need):
+            n = max(need, int(self.args.comm_round)
+                    + int(self.FUSED_CHUNK_ROUNDS))
+            if self._steps is not None:
+                n = max(n, 2 * self._steps.rows.shape[0])
+            self._steps = step_rows(1.0, self._spec, n, self.device)
+            self._graph = None
 
     def _client_sampling(self, round_idx: int) -> np.ndarray:
         if self.n_total == self.k:
@@ -438,6 +542,8 @@ class ParrotAPI:
                                 replace=False).astype(np.int32)
 
     def train(self) -> Dict[str, Any]:
+        if getattr(self.args, "fused_rounds", False):
+            return self._train_fused()
         return self._train_rounds()
 
     def _train_rounds(self) -> Dict[str, Any]:
@@ -449,6 +555,8 @@ class ParrotAPI:
         final_metrics: Dict[str, Any] = {}
         for round_idx in range(comm_rounds):
             t0 = time.perf_counter()
+            self._ready_steps(1, on_device=False)
+            self._t_host += 1
             if self.buckets is not None:
                 rm = self._bucketed_round_step(gen)
             else:
@@ -471,6 +579,196 @@ class ParrotAPI:
                     "round": round_idx,
                     "round_time": time.perf_counter() - t0,
                 }, f"parrot round {round_idx}")
+        return final_metrics
+
+    # ---- fused rounds ---------------------------------------------------
+    def _check_fused(self) -> None:
+        """Raise on what the fused rounds do not run yet: dropout (its
+        per-step generator is reseeded on the host) and the unfused adam and
+        yogi server steps (their optax step count is host state)."""
+        if float(getattr(self.bundle.module, "dropout", 0.0) or 0.0) > 0:
+            raise NotImplementedError(
+                "fused rounds of a model that trains with dropout are not "
+                "ported yet (port item A4/A6): each step's dropout "
+                "generator is seeded on the host")
+        name = str(getattr(self.args, "server_optimizer", "adam")
+                   or "adam").lower()
+        if self.server_tx is not None and name in ("adam", "yogi"):
+            raise NotImplementedError(
+                f"fused rounds with the unfused {name} server step are not "
+                f"ported yet (port item A4/A6): its step count lives on the "
+                f"host; the fused channel (fused_epilogue: true) runs adam")
+
+    def _fused_setup(self) -> None:
+        """The fused rounds' device state: the generator, the gated local
+        update, the index matrices and strata on the device, the round's
+        metrics buffer."""
+        if self._fgen is not None:
+            return
+        self._check_fused()
+        dev = self.device
+        seed = int(getattr(self.args, "random_seed", 0) or 0)
+        self._fgen = torch.Generator(device=dev).manual_seed(seed + 23)
+        self.gated_update = build_local_update(self.bundle, self.args,
+                                               gated=True)
+        self._idx_dev = self.idx_mat.to(dev)
+        for b in self.buckets or ():
+            for k in ("gids", "idx", "sizes"):
+                b[f"{k}_dev"] = b[k].to(dev)
+        #: the round's train_loss, train_acc, samples and samples_trained
+        self._rm = torch.zeros(4, dtype=torch.float32, device=dev)
+
+    def _draw(self, n: int) -> torch.Tensor:
+        """A uniform permutation of ``range(n)`` on the device: the order
+        of ``n`` random 62-bit keys."""
+        keys = torch.randint(0, 1 << 62, (n,), generator=self._fgen,
+                             device=self.device)
+        return torch.argsort(keys)
+
+    def _fused_round(self) -> None:
+        """One round with nothing read on the host: the draws, the gathers,
+        every client's gated local update and the server step, its metrics
+        into ``self._rm`` — the body a CUDA graph captures."""
+        data = self.device_data
+        if self.buckets is None:
+            ids = self._draw(self.n_total)[:self.k]
+            parts = [(self._gather_batches(data, ids, self._idx_dev,
+                                           self.nb), ids)]
+        else:
+            parts = []
+            for b in self.buckets:
+                rows = self._draw(b["gids"].shape[0])[:b["k"]]
+                if b["nb"] < b["nb_full"]:
+                    start = torch.randint(0, 1 << 30, (b["k"],),
+                                          generator=self._fgen,
+                                          device=self.device)
+                    batches = self._gather_batches_windowed(
+                        data, rows, b["idx_dev"], b["sizes_dev"], b["nb"],
+                        start)
+                else:
+                    batches = self._gather_batches(data, rows, b["idx_dev"],
+                                                   b["nb"])
+                parts.append((batches, b["gids_dev"][rows]))
+        rm = self._train_clients(parts, gated=True)
+        self._rm.copy_(torch.stack([rm["train_loss"], rm["train_acc"],
+                                    rm["samples"], rm["samples_trained"]]))
+
+    def _warm_round(self) -> None:
+        """One uncaptured round on a side stream, as a capture wants its
+        work warmed up: it builds the kernels and initialises the
+        libraries.  A real round: its effects stand."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._fused_round()
+        main.wait_stream(side)
+
+    def _capture(self) -> None:
+        """Capture one round into a CUDA graph, the generator registered
+        so that every replay draws anew, and instantiate it (the graph is
+        kept: its nodes can be counted).  Capture records and runs nothing;
+        a failure raises."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(self._fgen)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._fused_round()
+        t1 = time.perf_counter()
+        graph.instantiate()
+        self.fused_stats.update(capture_s=t1 - t0,
+                                instantiate_s=time.perf_counter() - t1)
+        self._graph = graph
+
+    def _fused_chunk(self, step: int) -> torch.Tensor:
+        """Enqueue ``step`` rounds and return the device rows of their
+        metrics (``self._rm`` per round), reading nothing on the host.  On
+        a card each round replays the captured round; with none captured
+        yet, the chunk's first round runs uncaptured and is then captured.
+        On the CPU every round runs uncaptured."""
+        self._fused_setup()
+        self._ready_steps(step, on_device=True)
+        if self._chunk_rm is None or self._chunk_rm.shape[0] < step:
+            self._chunk_rm = torch.zeros((step, 4), dtype=torch.float32,
+                                         device=self.device)
+        replays = 0
+        for r in range(step):
+            if self.device.type != "cuda":
+                self._fused_round()
+            elif self._graph is None:
+                self._warm_round()
+                self._capture()
+            else:
+                self._graph.replay()
+                replays += 1
+            self._chunk_rm[r].copy_(self._rm)
+            self._t_host += 1
+        self._last_replays = replays
+        return self._chunk_rm[:step]
+
+    def fused_graph_nodes(self) -> List[Tuple[str, str]]:
+        """``(kind, kernel name)`` of each node of the captured round's
+        CUDA graph (``ops/cuda_graphs.graph_nodes``)."""
+        if self._graph is None:
+            raise RuntimeError("no round has been captured: run "
+                               "run_rounds_fused on a card first")
+        return graph_nodes(self._graph)
+
+    def run_rounds_fused(self, n_rounds: int) -> Dict[str, np.ndarray]:
+        """Run ``n_rounds`` rounds in chunks of ``FUSED_CHUNK_ROUNDS``;
+        returns the per-round ``train_loss``, ``train_acc`` and ``samples``
+        (the weights' sum) as numpy arrays of length ``n_rounds``, read on
+        the host once a chunk.  ``n_rounds`` ≤ 0 returns empty arrays and
+        touches no state."""
+        remaining = int(n_rounds)
+        if remaining <= 0:
+            return {k: np.zeros((0,), np.float32)
+                    for k in ("train_loss", "train_acc", "samples")}
+        out = []
+        while remaining > 0:
+            step = min(int(self.FUSED_CHUNK_ROUNDS), remaining)
+            t0 = time.perf_counter()
+            # reading the metrics waits for the chunk to finish on the device
+            rms = self._fused_chunk(step).cpu().numpy().copy()
+            secs = time.perf_counter() - t0
+            self.fused_stats["chunks"].append(
+                {"rounds": step, "replays": self._last_replays,
+                 "seconds": secs})
+            for loss, _, _, trained in rms:
+                self.round_history.append({
+                    "round": len(self.round_history),
+                    "train_loss": float(loss),
+                    "train_seconds": secs / step,
+                    "samples_trained": float(trained)})
+            out.append(rms)
+            remaining -= step
+        rms = np.concatenate(out)
+        return {"train_loss": rms[:, 0], "train_acc": rms[:, 1],
+                "samples": rms[:, 2]}
+
+    def _train_fused(self) -> Dict[str, Any]:
+        """``fused_rounds: true``: chunks of ``frequency_of_the_test``
+        rounds through ``run_rounds_fused``, an eval after each;
+        ``round_time`` is the chunk's wall, eval included, per round."""
+        comm_rounds = int(self.args.comm_round)
+        freq = int(getattr(self.args, "frequency_of_the_test", 5) or 5)
+        test_batches = self._make_test_batches()
+        final_metrics: Dict[str, Any] = {}
+        done = 0
+        while done < comm_rounds:
+            t0 = time.perf_counter()
+            step = min(freq, comm_rounds - done)
+            rms = self.run_rounds_fused(step)
+            done += step
+            out = self.evaluate(test_batches)
+            n = max(float(out["n"]), 1.0)
+            final_metrics = self._record_metrics({
+                "test_loss": float(out["loss_sum"]) / n,
+                "test_acc": float(out["correct"]) / n,
+                "train_loss": float(rms["train_loss"][-1]),
+                "round": done - 1,
+                "round_time": (time.perf_counter() - t0) / step,
+            }, f"parrot fused rounds {done - step}-{done - 1}")
         return final_metrics
 
     def evaluate(self, test_batches: Dict[str, torch.Tensor]

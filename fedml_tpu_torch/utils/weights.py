@@ -247,19 +247,19 @@ def opt_state_from_jax(np_state: Any, flat_vars: FlatVariables,
 
 def opt_state_to_jax(state: Dict[torch.dtype, Any],
                      flat_vars: FlatVariables) -> Any:
-    """The inverse, as a dict of numpy trees (``t``/``count`` as int32
-    scalars); None for a stateless channel."""
+    """The inverse, as a dict of numpy trees (``t``/``count``, ints or 0-d
+    tensors, as int32 scalars); None for a stateless channel."""
     groups = [state[dt] for dt in flat_vars.param_dtypes()]
     if not groups or groups[0] is None:
         return None
     out: Dict[str, Any] = {}
     for key, val in groups[0].items():
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, torch.Tensor) and val.dim() > 0:
             out[key] = flax_params_from_flat(
                 {dt: state[dt][key] for dt in flat_vars.param_dtypes()},
                 flat_vars)
         else:
-            out[key] = np.asarray(val, np.int32)
+            out[key] = np.asarray(int(val), np.int32)
     return out
 
 

@@ -34,7 +34,10 @@ bit for bit to its plain version before it is timed.
 * Kernels 1-5 on a ``[10, 860,032]`` float32 buffer at the FedOpt round's
   parameter columns ``[0, 855,776)`` (kernel 1 on all columns), s = 1,
   with ``torch.matmul(wn, x)`` beside kernel 1 and ``torch.addmv`` beside
-  mix and sgd.
+  mix and sgd; kernels 2-5 read the step's row from the device table as
+  the per-round path launches them (the step by value), and adam also as
+  the fused rounds launch it (its count on the device, advanced by an
+  add).
 * Kernel 7 flat at ``[10, D]`` float32 with int32 weights for D 860,025,
   860,026 (ResNet-56), 860,027 and 860,032, beside
   ``torch.matmul(wn[None], x)``; and the whole ``agg_stacked_pallas`` call
@@ -541,8 +544,17 @@ def main():
                     st["v"].uniform_()
                     st["t"] = 4
             label = f"fused_epilogue.{'mix' if opt == 'none' else opt}"
-            probes[label] = (lambda spec=spec, st=st: epilogue.fused_epilogue(
-                g, cols, w, 1.0, spec, st, out=res))
+            steps = epilogue.step_rows(1.0, spec, 4096, dev)
+            probes[label] = (
+                lambda spec=spec, st=st, steps=steps: epilogue.fused_epilogue(
+                    g, cols, w, 1.0, spec, st, out=res, steps=steps))
+            if opt == "adam":
+                st_dev = dict(st, t=torch.tensor(4, dtype=torch.int64,
+                                                 device=dev))
+                probes[f"{label} (t on the device, its add included)"] = (
+                    lambda spec=spec, st=st_dev, steps=steps:
+                    epilogue.fused_epilogue(g, cols, w, 1.0, spec, st,
+                                            out=res, steps=steps))
             streams = {"none": 0, "sgd": 0, "momentum": 2, "adam": 4}[opt]
             bounds[label] = chip_smoke._bound(
                 (10 + 2 + streams) * p_main * 4 + 40,

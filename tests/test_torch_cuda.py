@@ -20,6 +20,7 @@ Tolerances as in ``tests/test_torch_epilogue.py``: float32 at
 """
 
 import math
+import os
 
 import pytest
 import torch
@@ -33,6 +34,10 @@ from fedml_tpu_torch.ops import wire_compression as wc
 from fedml_tpu_torch.utils.compression import WireCodec
 from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
 from fedml_tpu_torch.utils.weights import tree_from_module
+
+# cuBLAS's deterministic workspace, for the fused rounds' bit-for-bit check
+# under torch.use_deterministic_algorithms (read when cuBLAS is first used)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 F32_TOL = dict(atol=2e-6, rtol=2e-6)
 BF16_TOL = dict(atol=1e-6, rtol=2.0 ** -8)
@@ -287,6 +292,179 @@ def test_fused_epilogue_refuses_what_it_does_not_take(card):
                                 dict(st, v=torch.zeros(7, device=card)))
     with pytest.raises(ValueError):      # clients and weights disagree
         epilogue.fused_epilogue(g, x, torch.ones(2, device=card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt, t, count", [
+    ("adam", t, count) for t in (1, 2, 3, 300) for count in ("device", "host")]
+    + [(o, 1, None) for o in ("none", "sgd", "momentum")])
+def test_fused_epilogue_reads_its_step_row_from_the_device(opt, t, count,
+                                                           card):
+    """The kernel with the step's row read from a device table — adam's t
+    in a device tensor, advanced in place, or a host int passed by value —
+    against the plain version with the step rounded on the host, at t = 1,
+    2, 3 and 300 and in every channel."""
+    x, g, w, s, spec, st = _fused_inputs(f"{opt}_f32", card)
+    steps = epilogue.step_rows(s, spec, 300, card)
+    ref_st = _clone(st)
+    if opt == "adam":
+        ref_st["t"] = st["t"] = t - 1
+        if count == "device":
+            st["t"] = torch.tensor(t - 1, dtype=torch.int64, device=card)
+    ref, ref_st = epilogue.fused_epilogue_reference(g, x, w, s, spec, ref_st)
+    got, got_st = epilogue.fused_epilogue(g, x, w, s, spec, st, steps=steps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **F32_TOL)
+    for k in ("m", "v"):
+        if ref_st is not None and k in ref_st:
+            torch.testing.assert_close(got_st[k], ref_st[k], **F32_TOL)
+    if count == "device":
+        assert got_st["t"] is st["t"] and int(st["t"]) == t
+    elif opt == "adam":
+        assert got_st["t"] == t and st["t"] == t - 1
+
+
+@pytest.mark.gpu
+def test_a_captured_fused_epilogue_takes_each_replays_step(card):
+    """Adam's launch captured once into a CUDA graph: each replay takes
+    its own step's row (t advances on the device), held step by step
+    against the plain version from the kernel's own state."""
+    x, g, w, s, spec, st = _fused_inputs("adam_f32", card)
+    steps = epilogue.step_rows(s, spec, 10, card)
+    st["t"] = torch.zeros((), dtype=torch.int64, device=card)
+    out = torch.empty_like(g)
+    epilogue._kernel_lib("fused_epilogue")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        epilogue.fused_epilogue(g, x, w, s, spec, st, out=out, steps=steps)
+    for step in range(1, 4):
+        before = {"m": st["m"].clone(), "v": st["v"].clone(), "t": step - 1}
+        graph.replay()
+        ref, ref_st = epilogue.fused_epilogue_reference(g, x, w, s, spec,
+                                                        before)
+        torch.cuda.synchronize()
+        assert int(st["t"]) == step
+        torch.testing.assert_close(out, ref, **F32_TOL)
+        for k in ("m", "v"):
+            torch.testing.assert_close(st[k], ref_st[k], **F32_TOL)
+
+
+# ------------------------------------------------------------ fused rounds
+def _fused_api(card, tmp_path, **kw):
+    """A ParrotAPI on the card at the CPU tests' size (ResNet-8, float32):
+    8 clients, 4 a round in 2 size strata capped at 0.5, so the round draws
+    clients and window starts on the device."""
+    from fedml_tpu_torch.data import data_loader
+    from fedml_tpu_torch.ml.engine.model_bundle import ModelBundle
+    from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
+
+    args = Config(dataset="cifar10", backend="parrot",
+                  partition_method="hetero", client_num_in_total=8,
+                  client_num_per_round=4, comm_round=8, epochs=1,
+                  batch_size=16, learning_rate=0.05, data_scale=0.05,
+                  compute_dtype="float32", enable_tracking=False,
+                  hetero_buckets=2, hetero_bucket_cap=0.5,
+                  data_cache_dir=str(tmp_path), **kw)
+    torch.manual_seed(0)
+    bundle = ModelBundle(CIFARResNet(depth=8, num_classes=10), (32, 32, 3),
+                         10)
+    return ParrotAPI(args, card, data_loader.load(args), bundle)
+
+
+FUSED_ALGOS = {"FedAvg": {},
+               "FedOpt": dict(federated_optimizer="FedOpt",
+                              server_optimizer="adam")}
+
+
+def _round_state(api):
+    """Copies of what a round changes: the globals, the server state's
+    tensors and the generator's state."""
+    opt = api.server_state.get("opt_state", {})
+    return {"global": {dt: f.clone() for dt, f in api.global_vars.items()},
+            "opt": {dt: {k: v.clone() for k, v in (st or {}).items()
+                         if isinstance(v, torch.Tensor)}
+                    for dt, st in opt.items()},
+            "gen": api._fgen.get_state()}
+
+
+def _set_round_state(api, state):
+    for dt, f in api.global_vars.items():
+        f.copy_(state["global"][dt])
+    for dt, st in api.server_state.get("opt_state", {}).items():
+        for k, v in state["opt"][dt].items():
+            st[k].copy_(v)
+    api._fgen.set_state(state["gen"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", sorted(FUSED_ALGOS))
+def test_replayed_rounds_equal_uncaptured_rounds(algo, card, tmp_path):
+    """From the same globals, server state and generator state, two
+    replays of the captured round and two uncaptured runs of its body give
+    the same bits, under deterministic algorithms: metrics, globals, the
+    server state and the generator's state after."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        api = _fused_api(card, tmp_path, **FUSED_ALGOS[algo])
+        api.run_rounds_fused(1)      # a real round uncaptured, then capture
+        start = _round_state(api)
+        replayed = api._fused_chunk(2).clone()
+        assert api._last_replays == 2
+        after = _round_state(api)
+        _set_round_state(api, start)
+        rows = []
+        for _ in range(2):
+            api._fused_round()
+            rows.append(api._rm.clone())
+        eager = _round_state(api)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(replayed, torch.stack(rows))
+    assert torch.equal(after["gen"], eager["gen"])
+    for dt in after["global"]:
+        assert torch.equal(after["global"][dt], eager["global"][dt])
+        assert not torch.equal(after["global"][dt], start["global"][dt])
+    for dt, st in after["opt"].items():
+        for k in st:
+            assert torch.equal(st[k], eager["opt"][dt][k]), k
+    if algo == "FedOpt":
+        assert int(after["opt"][torch.float32]["t"]) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", sorted(FUSED_ALGOS))
+def test_captured_round_holds_the_epilogue_nodes(algo, card, tmp_path):
+    """One weighted-reduce node per dtype group on FedAvg; one
+    fused-epilogue node and one weighted-reduce node (the BatchNorm
+    columns) on FedOpt."""
+    api = _fused_api(card, tmp_path, **FUSED_ALGOS[algo])
+    api.run_rounds_fused(1)
+    names = [n for kind, n in api.fused_graph_nodes() if kind == "kernel"]
+    reduce = sum("weighted_reduce_kernel" in n for n in names)
+    fused = sum("fused_epilogue_kernel" in n for n in names)
+    if algo == "FedAvg":
+        assert (reduce, fused) == (len(api.global_vars), 0)
+    else:
+        assert (reduce, fused) == (1, 1)
+    assert len(names) > 100
+
+
+@pytest.mark.gpu
+def test_a_replayed_chunk_reads_nothing_on_the_host(card, tmp_path):
+    """Under sync-debug mode "error" a chunk of replays raises nothing:
+    no host read, no synchronising call."""
+    api = _fused_api(card, tmp_path, **FUSED_ALGOS["FedOpt"])
+    api.run_rounds_fused(1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        api._fused_chunk(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert api._last_replays == 3
+    loss = api.run_rounds_fused(2)["train_loss"]
+    assert loss.shape == (2,) and bool(torch.isfinite(torch.from_numpy(
+        loss)).all())
 
 
 # ------------------------------------------------------------ flash attention

@@ -259,7 +259,8 @@ def test_two_fedopt_rounds_match_jax(arm, tmp_path):
 
 @pytest.mark.parametrize("bad", [dict(federated_optimizer="FedProx"),
                                  dict(robust_agg="median"),
-                                 dict(fused_rounds=True)])
+                                 dict(fused_rounds=True,
+                                      checkpoint_dir="ckpt")])
 def test_unported_options_raise(bad, tmp_path):
     args = _args(Config, tmp_path, **bad)
     with pytest.raises(NotImplementedError):
