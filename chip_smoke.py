@@ -130,13 +130,26 @@ raises and ends the run with a non-zero exit:
     share over one replayed chunk, and the card; it checks that a replayed
     chunk raises nothing under ``torch.cuda.set_sync_debug_mode("error")``
     and, under deterministic algorithms, that 2 replayed FedOpt rounds of
-    ResNet-56 equal 2 uncaptured runs of the same round body, bit for bit.
+    ResNet-56 equal 2 uncaptured runs of the same round body, bit for bit;
+17. main path, BASELINE config 3 fused — phase 9's config with
+    ``fused_rounds: true`` and a ``checkpoint_dir``, 8 rounds in two chunks
+    of 4 with an eval (and a checkpoint) after each: dropout 0.1 drawn
+    from the round's second card generator, server adam on the fused
+    channel, the flash kernel in the evals.  It prints the capture and
+    instantiate seconds, the graph's nodes by kind and its fused-epilogue
+    node (1), rounds/s over the replayed chunk beside phase 9's, the flash
+    launches of the two evals and peak memory.  Then a fresh ``ParrotAPI``
+    restores the chunk-boundary checkpoint (round 4's start), checked bit
+    for bit against the file before its first round, captures and replays
+    one chunk with the seed of the first drive's second chunk; and the
+    unfused yogi arm (optax's yogi, its step count on the device) runs 3
+    fused rounds of ResNet-20 on the north-star data.
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9, 11, 12, 14, 15 and 16) is driven with the kernels' launch counts set to
-0 just before it and read just after (phase 16: its uncaptured round and
-its capture; replays launch nothing from Python, and the graph's nodes are
-counted instead).  Then one JSON line of per-kernel numbers and, last, the
+9, 11, 12, 14, 15, 16 and 17) is driven with the kernels' launch counts
+set to 0 just before it and read just after (phases 16 and 17: the
+uncaptured round and the capture; replays launch nothing from Python, and
+the graph's nodes are counted instead).  Then one JSON line of per-kernel numbers and, last, the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +161,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -180,12 +194,16 @@ from fedml_tpu_torch.serving.quantization import (
     quantize_lm_params,
     quantize_matrix_int8,
 )
-from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
+from fedml_tpu_torch.simulation.parrot.parrot_api import (
+    SAMPLE_SEED_OFFSET,
+    ParrotAPI,
+)
 from fedml_tpu_torch.train.fed_llm import FedLLMAggregator, FedLLMTrainer
 from fedml_tpu_torch.train.fed_llm.trainer import (
     FED_LLM_TOKENS,
     FED_LLM_TRAIN_SECONDS,
 )
+from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
 from fedml_tpu_torch.utils.compression import WIRE_BYTES, WireCodec, decode_delta
 from fedml_tpu_torch.utils.serialization import estimate_nbytes
 from fedml_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -197,7 +215,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 16
+PHASES = 17
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -1836,6 +1854,7 @@ def lm_main_path_phase(n):
     evals_s = [m["round_time"] - r["train_seconds"]
                for m, r in zip(api.metrics_history, api.round_history)]
     args = run["args"]
+    PER_ROUND_RATE["config 3"] = run["steady"]
     phase(n, "main path", f"Parrot FedOpt (server adam {args.server_lr}) "
           f"{args.model} {args.compute_dtype} on {args.dataset}, "
           f"{api.n_total} clients, {api.k} per round, {api.train_num} train /"
@@ -1851,7 +1870,7 @@ def lm_main_path_phase(n):
           f"fused_epilogue.adam {launches['fused_epilogue.adam']}, "
           f"weighted_reduce {launches['weighted_reduce']}, data "
           f"{run['t_data']:.1f} s, whole phase {run['total']:.1f} s")
-    return launches, api
+    return launches, api, run["dataset"]
 
 
 def cross_silo_phase(n, codec_round_s):
@@ -3297,6 +3316,37 @@ FUSED_CHECK = dict(client_num_per_round=2, hetero_buckets=2,
                    hetero_bucket_cap=0.25)
 
 
+def _graph_summary(api):
+    """The captured round's nodes: (count, counts by kind as text, kernel
+    names, seconds taken to read them)."""
+    t0 = time.perf_counter()
+    nodes = api.fused_graph_nodes()
+    secs = time.perf_counter() - t0
+    kinds = {}
+    for kind, _ in nodes:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    names = [n for kind, n in nodes if kind == "kernel"]
+    text = ", ".join(f"{k} {v}" for k, v in sorted(kinds.items(),
+                                                   key=lambda kv: -kv[1]))
+    return len(nodes), text, names, secs
+
+
+def _fused_chunk_checks(api, rounds, freq):
+    """Check the chunks of a fused drive of ``rounds`` rounds, an eval
+    every ``freq`` (the first round uncaptured, every later one a replay);
+    rounds/s over the chunks of replays alone, None without one."""
+    chunks = api.fused_stats["chunks"]
+    want = [min(freq, rounds - i) for i in range(0, rounds, freq)]
+    check([c["rounds"] for c in chunks] == want
+          and [c["replays"] for c in chunks]
+          == [want[0] - 1] + want[1:], f"chunks {chunks}")
+    replayed = [c for c in chunks if c["replays"] == c["rounds"]]
+    if not replayed:
+        return None
+    return (sum(c["rounds"] for c in replayed)
+            / sum(c["seconds"] for c in replayed))
+
+
 def _fused_drive(label, dataset=None, **overrides):
     """The fused path through the five steps: the launches of its
     uncaptured round and of the capture (replays do not count), the
@@ -3307,21 +3357,10 @@ def _fused_drive(label, dataset=None, **overrides):
     api, launches = run["api"], run["launches"]
     stats = api.fused_stats
     chunks = stats["chunks"]
-    check([c["rounds"] for c in chunks] == [FUSED_FREQ] * 2
-          and [c["replays"] for c in chunks] == [FUSED_FREQ - 1, FUSED_FREQ],
-          f"chunks {chunks}")
+    rate = _fused_chunk_checks(api, FUSED_ROUNDS, FUSED_FREQ)
     evals = [m["round"] for m in api.metrics_history]
     check(evals == [FUSED_FREQ - 1, FUSED_ROUNDS - 1], f"evals at {evals}")
-    replayed = [c for c in chunks if c["replays"] == c["rounds"]]
-    rate = (sum(c["rounds"] for c in replayed)
-            / sum(c["seconds"] for c in replayed))
-    t_nodes = time.perf_counter()
-    nodes = api.fused_graph_nodes()
-    t_nodes = time.perf_counter() - t_nodes
-    kinds = {}
-    for kind, _ in nodes:
-        kinds[kind] = kinds.get(kind, 0) + 1
-    names = [n for kind, n in nodes if kind == "kernel"]
+    n_nodes, kinds, names, t_nodes = _graph_summary(api)
     reduce = sum("weighted_reduce_kernel" in n for n in names)
     fused = sum("fused_epilogue_kernel" in n for n in names)
     groups = len(api.global_vars)
@@ -3350,10 +3389,9 @@ def _fused_drive(label, dataset=None, **overrides):
           f"{stats['instantiate_s']:.2f} s; {rate:.3f} rounds/s over the "
           f"replayed chunk (host clock, ended by reading its losses) against "
           f"the per-round path's {PER_ROUND_RATE.get(label, float('nan')):.3f}"
-          f" (phases 6-7, after round 0); the round's graph: {len(nodes)} "
-          f"nodes (" + ", ".join(f"{k} {v}" for k, v in sorted(
-              kinds.items(), key=lambda kv: -kv[1]))
-          + f"; read in {t_nodes:.1f} s), epilogue kernels {reduce} "
+          f" (phases 6-7, after round 0); the round's graph: {n_nodes} "
+          f"nodes ({kinds}; read in {t_nodes:.1f} s), epilogue kernels "
+          f"{reduce} "
           f"weighted_reduce, {fused} fused_epilogue; launches outside "
           f"replays "
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
@@ -3504,6 +3542,186 @@ def fused_phase(name, dataset=None):
     return avg_launches, opt_launches
 
 
+#: BASELINE config 3 fused (phase 17): phase 9's config with fused rounds,
+#: 8 rounds in chunks of 4, an eval and a checkpoint after each
+LM_FUSED_CONFIG = dict(
+    LM_CONFIG, comm_round=FUSED_ROUNDS, frequency_of_the_test=FUSED_FREQ,
+    fused_rounds=True,
+    checkpoint_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_ckpt"))
+#: the unfused yogi arm fused (phase 17): ResNet-20 on the north-star data,
+#: phase 16's check cohort, 3 rounds in one chunk (one uncaptured, 2
+#: replays)
+YOGI_FUSED = dict(FUSED_CONFIG, **FUSED_CHECK, model="resnet20",
+                  federated_optimizer="FedOpt", server_optimizer="yogi",
+                  server_lr=1e-3, comm_round=3, frequency_of_the_test=3)
+
+
+def _equal_bits(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == \
+        b.tobytes()
+
+
+def lm_fused_phase(lm_data, main_data):
+    """Phase 17: BASELINE config 3 in fused rounds through the five steps
+    (phase 9's data), its resume from the chunk-boundary checkpoint, and
+    the unfused yogi arm fused on ResNet-20 (phase 16's data)."""
+    t_phase = time.perf_counter()
+    ck = LM_FUSED_CONFIG["checkpoint_dir"]
+    shutil.rmtree(ck, ignore_errors=True)
+    run = _drive(LM_FUSED_CONFIG, unit="tokens", rounds=FUSED_ROUNDS,
+                 dataset=lm_data)
+    api, launches, stats = run["api"], run["launches"], run["api"].fused_stats
+    rate = _fused_chunk_checks(api, FUSED_ROUNDS, FUSED_FREQ)
+    evals = [m["round"] for m in api.metrics_history]
+    check(evals == [FUSED_FREQ - 1, FUSED_ROUNDS - 1], f"evals at {evals}")
+    n_test = int(api.test_num)
+    want_flash = 2 * (-(-n_test // api.bs)) * len(evals)
+    check(launches["flash_attention"] == want_flash
+          and launches["fused_epilogue.adam"] == 2
+          and launches["fused_epilogue"] == 2
+          and launches["weighted_reduce"] == 0,
+          f"the uncaptured round, the capture and {len(evals)} evals of "
+          f"{n_test} sequences launched {launches}; want flash_attention "
+          f"{want_flash}, adam 2")
+    n_nodes, kinds, names, _ = _graph_summary(api)
+    fused = sum("fused_epilogue_kernel" in n for n in names)
+    reduce = sum("weighted_reduce_kernel" in n for n in names)
+    flash = sum("flash" in n for n in names)
+    check((reduce, fused, flash) == (0, 1, 0),
+          f"the captured config-3 round holds {reduce} weighted-reduce, "
+          f"{fused} fused-epilogue and {flash} flash nodes, not (0, 1, 0)")
+    t = api.server_state["opt_state"][torch.float32]["t"]
+    check(isinstance(t, torch.Tensor) and int(t) == FUSED_ROUNDS
+          and api._dgen is not None,
+          f"adam's step count {t}, dropout generator {api._dgen}")
+    ckpt = RoundCheckpointer(ck)
+    saved = sorted(int(f[6:14]) for f in os.listdir(ck))
+    check(saved == [FUSED_FREQ - 1, FUSED_ROUNDS - 1],
+          f"checkpoints of rounds {saved}")
+    losses = [r["train_loss"] for r in api.round_history]
+    final, args = run["final"], run["args"]
+    phase(17, "main path", f"BASELINE config 3 fused: Parrot FedOpt (server "
+          f"adam {args.server_lr}) {args.model} {args.compute_dtype} "
+          f"dropout {api.bundle.module.dropout} on {args.dataset}, "
+          f"{api.n_total} clients, {api.k} per round (grids of {api.nb} "
+          f"batches, every batch run and gated), {FUSED_ROUNDS} rounds in "
+          f"chunks of {FUSED_FREQ} (round 1 uncaptured, one capture, "
+          f"{sum(c['replays'] for c in stats['chunks'])} replays): capture "
+          f"{stats['capture_s']:.2f} s, instantiate "
+          f"{stats['instantiate_s']:.2f} s; {rate:.3f} rounds/s over the "
+          f"replayed chunk (host clock, ended by reading its losses) against "
+          f"the per-round path's "
+          f"{PER_ROUND_RATE.get('config 3', float('nan')):.3f} (phase 9, "
+          f"after round 0); the round's graph: {n_nodes} nodes ({kinds}), "
+          f"{fused} fused_epilogue, {reduce} weighted_reduce, {flash} flash "
+          f"(training at dropout 0.1 takes the plain attention); launches "
+          f"outside replays: flash_attention {launches['flash_attention']} "
+          f"in the {len(evals)} evals (2 per eval batch), "
+          f"fused_epilogue.adam {launches['fused_epilogue.adam']}; adam t "
+          f"{int(t)} on the device; train_loss by round "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; final token test_acc {final['test_acc']:.4f} test_loss "
+          f"{final['test_loss']:.4f}; checkpoints after rounds {saved}; "
+          f"peak memory {run['peak'] / 2**30:.2f} GiB; whole drive "
+          f"{run['total']:.1f} s")
+    api = run = None
+
+    # resume: a fresh API restores the chunk-boundary checkpoint in place,
+    # checked bit for bit against the file, then captures and replays one
+    # chunk with the seed train() gave the first drive's second chunk
+    t0 = time.perf_counter()
+    gc.collect()
+    state = ckpt.restore(FUSED_FREQ - 1)
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Config(**LM_FUSED_CONFIG))
+    torch.manual_seed(0)
+    bundle = fedml_tpu_torch.model.create(args, lm_data[-1])
+    fresh = ParrotAPI(args, None, lm_data, bundle)
+    fresh._restore_state(state)
+    got = fresh.global_flax_variables()
+    g_leaves = tree_leaves(got)
+    s_leaves = tree_leaves(state["global_vars"])
+    same = {"global": len(g_leaves) == len(s_leaves) and all(
+        _equal_bits(a, b) for a, b in zip(g_leaves, s_leaves))}
+    st = fresh.server_state["opt_state"][torch.float32]
+    src = state["server_state"]["opt_state"]["float32"]
+    for k in ("m", "v"):
+        same[k] = _equal_bits(st[k].cpu().numpy(), src[k])
+    same["t"] = int(st["t"]) == int(src["t"]) == FUSED_FREQ
+    check(all(same.values()), f"the restored state differs from the "
+          f"checkpoint: {same}")
+    gen = torch.Generator().manual_seed(int(args.random_seed)
+                                        + SAMPLE_SEED_OFFSET)
+    torch.randint(0, 1 << 62, (), generator=gen)     # the first chunk's seed
+    t1 = time.perf_counter()
+    rms = fresh.run_rounds_fused(FUSED_FREQ, rng=gen)
+    t_chunk = time.perf_counter() - t1
+    check(fresh._last_replays == FUSED_FREQ - 1
+          and np.isfinite(rms["train_loss"]).all()
+          and int(st["t"]) == FUSED_ROUNDS,
+          f"the resumed chunk: {fresh._last_replays} replays, losses "
+          f"{rms['train_loss']}, t {int(st['t'])}")
+    first = np.asarray(losses[FUSED_FREQ:], np.float64)
+    dl = np.abs(rms["train_loss"] - first) / np.abs(first)
+    check(dl[0] <= 1e-2, f"the resumed chunk's first round trained other "
+          f"rounds than the first drive's: train_loss {rms['train_loss']} "
+          f"against {first}")
+    phase(17, "resume", f"a fresh ParrotAPI restored the round-"
+          f"{FUSED_FREQ - 1} checkpoint in place, "
+          + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                      for k, v in same.items())
+          + f" to the file, bit for bit, before its first round; then one "
+          f"chunk of {FUSED_FREQ} (round 1 uncaptured, a capture "
+          f"{fresh.fused_stats['capture_s']:.2f} s + instantiate "
+          f"{fresh.fused_stats['instantiate_s']:.2f} s, "
+          f"{fresh._last_replays} replays) in {t_chunk:.1f} s with the "
+          f"first drive's second-chunk seed: train_loss "
+          + ", ".join(f"{x:.4f}" for x in rms["train_loss"])
+          + " against the first drive's "
+          + ", ".join(f"{x:.4f}" for x in first)
+          + f" (relative difference {dl.max():.2e} at most); "
+          f"{time.perf_counter() - t0:.1f} s")
+    fresh = bundle = state = None
+
+    yogi = _drive(YOGI_FUSED, rounds=YOGI_FUSED["comm_round"],
+                  dataset=main_data)
+    api, y_launches = yogi["api"], yogi["launches"]
+    _fused_chunk_checks(api, YOGI_FUSED["comm_round"],
+                        YOGI_FUSED["frequency_of_the_test"])
+    chunk = api.fused_stats["chunks"][0]
+    groups = len(api.global_vars)
+    n_nodes, kinds, names, _ = _graph_summary(api)
+    reduce = sum("weighted_reduce_kernel" in n for n in names)
+    fused = sum("fused_epilogue_kernel" in n for n in names)
+    count = api.server_state["opt_state"][torch.float32]["count"]
+    check((reduce, fused) == (groups, 0)
+          and y_launches["weighted_reduce"] == 2 * groups
+          and y_launches["fused_epilogue"] == 0
+          and isinstance(count, torch.Tensor)
+          and int(count) == YOGI_FUSED["comm_round"],
+          f"the unfused yogi round: {reduce} weighted-reduce and {fused} "
+          f"fused-epilogue nodes, launches {y_launches}, count {count}")
+    phase(17, "main path", f"the unfused yogi arm fused: {api.args.model} "
+          f"{api.args.compute_dtype}, {api.k} clients a round in "
+          f"{api.n_buckets} strata capped at {api.bucket_cap}, "
+          f"{YOGI_FUSED['comm_round']} rounds in one chunk (round 1 "
+          f"uncaptured, a capture, {chunk['replays']} replays): "
+          f"capture {api.fused_stats['capture_s']:.2f} s, instantiate "
+          f"{api.fused_stats['instantiate_s']:.2f} s, the chunk "
+          f"{chunk['seconds']:.2f} s; the round's graph: {n_nodes} nodes "
+          f"({kinds}), {reduce} "
+          f"weighted_reduce (kernel 1, the arm's reduce), {fused} "
+          f"fused_epilogue; optax's count {int(count)} on the device; "
+          f"launches outside replays weighted_reduce "
+          f"{y_launches['weighted_reduce']}; final test_acc "
+          f"{yogi['final']['test_acc']:.4f}; whole drive "
+          f"{yogi['total']:.1f} s; phase 17 {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    print(f"    card: {_smi_line()}", flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    return launches, y_launches
+
+
 def main():
     name, _ = device_phase()
     # the port's device choice: the card, with TF32 off
@@ -3534,7 +3752,7 @@ def main():
                                                    **FEDOPT)
     trace_resnet(api)
     api = None
-    lm_launches, api = lm_main_path_phase(9)
+    lm_launches, api, lm_data = lm_main_path_phase(9)
     trace_lm(api)
     api = None
     cs_launches = cross_silo_phase(11, codec_round_s)
@@ -3544,9 +3762,11 @@ def main():
     mc_launches = mc_main_path_phase(14, name, dev)
     po_launches = po_main_path_phase(15, dev)
     fused_avg, fused_opt = fused_phase(name, main_data)
-    main_data = None
-    # launches, each from its own path: the weighted reduce from both
-    # ResNet main paths, adam from both FedOpt main paths, momentum and sgd
+    lm_fused, yogi_fused = lm_fused_phase(lm_data, main_data)
+    main_data = lm_data = None
+    # launches, each from its own path: the weighted reduce from the
+    # ResNet main paths (phase 17's yogi drive too), adam from the FedOpt
+    # main paths (phase 17's config 3 too), momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
     # 3, the flash forward from the BERT-tiny path's eval passes, the wire
     # kernels from the int8 cross-silo path, the fold from the fed-LLM path,
@@ -3560,14 +3780,17 @@ def main():
         "wire_compression.quantize": cs_launches["wire_compression.quantize"],
         "wire_compression.dequantize":
             cs_launches["wire_compression.dequantize"],
-        "flash_attention": lm_launches["flash_attention"],
+        "flash_attention": (lm_launches["flash_attention"]
+                            + lm_fused["flash_attention"]),
         "weighted_reduce": (avg_launches["weighted_reduce"]
                             + opt_launches["weighted_reduce"]
                             + fused_avg["weighted_reduce"]
-                            + fused_opt["weighted_reduce"]),
+                            + fused_opt["weighted_reduce"]
+                            + yogi_fused["weighted_reduce"]),
         "adam": (opt_launches["fused_epilogue.adam"]
                  + lm_launches["fused_epilogue.adam"]
-                 + fused_opt["fused_epilogue.adam"]),
+                 + fused_opt["fused_epilogue.adam"]
+                 + lm_fused["fused_epilogue.adam"]),
         "momentum": parity["FedOpt sgd momentum 0.9"][
             "fused_epilogue.momentum"],
         "sgd": parity["FedOpt sgd"]["fused_epilogue.sgd"],

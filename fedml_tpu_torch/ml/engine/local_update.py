@@ -30,9 +30,11 @@ trained state from it afterwards.
 Token batches (a language model's ``x`` and ``y`` of ``[nb, B, T]`` integer
 tokens) take the same path: ``x`` keeps its integer type, the ``[B]``
 mask broadcasts over the tokens, and the statistics count valid tokens.
-Dropout draws from a generator on the batch's device, reseeded from the
-caller's host generator once per step — the JAX engine splits its key once
-per step.  The two frameworks draw different bits from one seed.
+Dropout draws, in the host-skip body, from a generator on the batch's
+device reseeded from the caller's host generator once per step — the JAX
+engine splits its key once per step; in the gated body, from the caller's
+generator on the batch's device, read by no host.  The two frameworks draw
+different bits from one seed.
 """
 
 from __future__ import annotations
@@ -101,15 +103,17 @@ def build_local_update(bundle: ModelBundle, cfg: Any,
     ``torch.Generator``, seeds each step's dropout: a model that trains with
     dropout needs it.
 
-    ``gated``: the gated body, ``local_update(variables, batches, valid)``
-    with ``valid`` the ``[nb]`` bool tensor of the batches' flags on the
-    batches' device; its metrics are all tensors, ``local_steps`` the count
-    of valid steps.  It takes no dropout generator."""
+    ``gated``: the gated body, ``local_update(variables, batches, valid,
+    rng=None)`` with ``valid`` the ``[nb]`` bool tensor of the batches'
+    flags on the batches' device; its metrics are all tensors,
+    ``local_steps`` the count of valid steps.  Its ``rng`` is a generator on
+    the batches' device that every step's dropout draws from, a padded
+    step's too, so a CUDA graph can hold the draws."""
     algo = str(getattr(cfg, "federated_optimizer", FED_OPT_FEDAVG))
     if algo not in _PLAIN_SGD:
         raise NotImplementedError(
-            f"local update for {algo!r} is not ported yet; the port runs "
-            f"{', '.join(_PLAIN_SGD)}")
+            f"local update for {algo!r} is not ported yet (port item A9); "
+            f"the port runs {', '.join(_PLAIN_SGD)}")
     epochs = int(getattr(cfg, "epochs", 1))
     sgd_step = build_client_optimizer(cfg)
 
@@ -149,7 +153,9 @@ def build_local_update(bundle: ModelBundle, cfg: Any,
 
     def gated_update(variables: FlatVariables,
                      batches: Dict[str, torch.Tensor],
-                     valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+                     valid: torch.Tensor,
+                     rng: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
         params, flat = variables.params, variables.flat
         mask_all = batches["mask"]
         zero = torch.zeros((), device=mask_all.device)
@@ -161,7 +167,7 @@ def build_local_update(bundle: ModelBundle, cfg: Any,
                 for dt, f in flat.items():
                     prev[dt].copy_(f)
                 x, y, m = batches["x"][b], batches["y"][b], mask_all[b]
-                logits = bundle.apply(x, train=True)
+                logits = bundle.apply(x, train=True, rng=rng)
                 loss = bundle.loss(logits, y, m)
                 grads = torch.autograd.grad(loss, params)
                 sgd_step(params, list(grads))

@@ -29,7 +29,8 @@ Port of ``fedml_tpu/ml/engine/optimizers.py``:
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -61,13 +62,23 @@ State = Dict[str, Any]
 
 class ServerOptimizer(NamedTuple):
     """optax's ``GradientTransformation`` on one flat tensor:
-    ``init(params) -> state`` and ``update(grads, state) -> (updates,
-    state)``; ``apply_updates`` adds the updates.  The state's keys are
-    optax's field names (``count``/``mu``/``nu``, ``sum_of_squares``,
-    ``trace``)."""
+    ``init(params) -> state`` and ``update(grads, state, bias_rows=None)
+    -> (updates, state)``; ``apply_updates`` adds the updates.  The state's
+    keys are optax's field names (``count``/``mu``/``nu``,
+    ``sum_of_squares``, ``trace``).
+
+    ``betas``: adam's and yogi's ``(b1, b2)``, whose bias corrections
+    depend on the step count (None for the others).  Their ``count`` is a
+    host int, or a 0-d int64 tensor on the state's device that ``update``
+    advances in place; the corrections then come from ``bias_rows``, a
+    device table whose row ``t − 1`` holds ``1 − b1^t`` and ``1 − b2^t``
+    rounded on the host as ``_bias_correction`` rounds them (the last two
+    columns of ``ops/epilogue.step_rows``), its last row taken for every
+    later step — so nothing on the host reads the count."""
 
     init: Callable[[torch.Tensor], State]
-    update: Callable[[torch.Tensor, State], Tuple[torch.Tensor, State]]
+    update: Callable[..., Tuple[torch.Tensor, State]]
+    betas: Optional[Tuple[float, float]] = None
 
 
 def apply_updates(params: torch.Tensor, updates: torch.Tensor
@@ -96,7 +107,8 @@ def _adam_like(name: str, lr: float, b1: float, b2: float, eps: float,
                           device=params.device)
         return {"count": 0, "mu": full, "nu": full.clone()}
 
-    def update(grads: torch.Tensor, state: State
+    def update(grads: torch.Tensor, state: State,
+               bias_rows: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, State]:
         mu = _f32(1 - b1) * grads + _f32(b1) * state["mu"]
         sq = grads * grads
@@ -105,13 +117,23 @@ def _adam_like(name: str, lr: float, b1: float, b2: float, eps: float,
                 state["nu"] - sq) * sq
         else:
             nu = _f32(1 - b2) * sq + _f32(b2) * state["nu"]
-        count = int(state["count"]) + 1
-        mu_hat = mu / _bias_correction(b1, count)
-        nu_hat = nu / _bias_correction(b2, count)
-        u = mu_hat / (torch.sqrt(nu_hat + 0.0) + _f32(eps))
+        count = state["count"]
+        if isinstance(count, torch.Tensor):
+            if bias_rows is None:
+                raise ValueError(f"{name}: a step count in a tensor needs "
+                                 f"the bias-correction table (bias_rows)")
+            count.add_(1)
+            row = torch.clamp(count, 1, bias_rows.shape[0]) - 1
+            bc = bias_rows.index_select(0, row.reshape(1))[0]
+            bc1, bc2 = bc[0], bc[1]
+        else:
+            count = int(count) + 1
+            bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2,
+                                                                     count)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2 + 0.0) + _f32(eps))
         return _f32(-lr) * u, {"count": count, "mu": mu, "nu": nu}
 
-    return ServerOptimizer(init, update)
+    return ServerOptimizer(init, update, (b1, b2))
 
 
 def _adagrad(lr: float, init_value: float = 0.1, eps: float = 1e-7
@@ -121,7 +143,8 @@ def _adagrad(lr: float, init_value: float = 0.1, eps: float = 1e-7
             params.shape, init_value, dtype=params.dtype,
             device=params.device)}
 
-    def update(grads: torch.Tensor, state: State
+    def update(grads: torch.Tensor, state: State,
+               bias_rows: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, State]:
         sos = grads * grads + state["sum_of_squares"]
         inv = torch.where(sos > 0, torch.rsqrt(sos + _f32(eps)),
@@ -137,7 +160,8 @@ def _sgd(lr: float, momentum: float) -> ServerOptimizer:
             return {}
         return {"trace": torch.zeros_like(params)}
 
-    def update(grads: torch.Tensor, state: State
+    def update(grads: torch.Tensor, state: State,
+               bias_rows: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, State]:
         if not momentum:
             return _f32(-lr) * grads, {}

@@ -33,26 +33,38 @@ the device; every batch of a client's grid runs, gated by its device flag
 weights and metrics stay on the device.  On a card each round is one replay
 of a CUDA graph: the first round of a ``ParrotAPI`` runs uncaptured (it
 builds the kernels and warms the libraries), then the round is captured
-once, with its generator registered so that every replay draws anew; a
+once, with its generators registered so that every replay draws anew; a
 capture that fails raises.  On the CPU the same round body runs
 uncaptured, which is how the tests hold it to the JAX package's scan.
+Each call of ``run_rounds_fused(n, rng)`` reseeds the generators first, as
+the JAX package takes a key per call; ``train()`` passes a fresh seed per
+chunk.
+
+With ``checkpoint_dir`` both paths save ``{round_idx, global_vars,
+server_state}`` (``utils/checkpoint.RoundCheckpointer``, the JAX package's
+file format) — the per-round path every ``checkpoint_frequency`` rounds
+(10) and at the last, the fused rounds after each eval — and resume from
+the newest save, written into the live buffers in place.
 
 Deviations from the reference: the bucketed round draws its clients and its
 window starts with a seeded ``torch.Generator`` (``seed + 17``), where the
 JAX package draws them with ``jax.random``; the distribution is the same
 (quota ``q`` per stratum without replacement, uniform window start mod the
 client's size), the draws are not.  The fused rounds draw from a
-``torch.Generator`` on the round's device seeded ``seed + 23``, where the
-JAX package splits ``PRNGKey(seed + 23)``: a uniform round takes the first
+``torch.Generator`` on the round's device seeded, per call, with the
+call's seed (``seed + 23`` without ``rng``), where the JAX package splits
+``PRNGKey(seed + 23)`` or the call's key: a uniform round takes the first
 ``k`` of a permutation of the ``n`` clients (the order of ``n`` random
 62-bit keys), a stratum the first ``q`` of a permutation of its members,
 plus a window start in ``[0, 2^30)`` per client where it is capped — the
 same distributions as ``jax.random.permutation`` and ``randint``, other
-bits.  The per-round path's uniform
-``np.random.seed(round)`` draw is the reference's, exactly.  Dropout draws
-from a host generator seeded ``seed + 31``, one seed per training step
-(``ml/engine/local_update.py``), where the JAX package splits its round
-key per client and per step.
+bits.  The per-round path's uniform ``np.random.seed(round)`` draw is the
+reference's, exactly.  Dropout draws, on the per-round path, from a host
+generator seeded ``seed + 31``, one seed per training step
+(``ml/engine/local_update.py``); in the fused rounds, from a second card
+generator seeded with the call's seed + 8 (``seed + 31`` without ``rng``)
+and registered with the graph, every batch drawing, padded or not; the JAX
+package splits its round key per client and per step.
 
 Token data (``fed_shakespeare``: ``x`` and ``y`` of ``[N, 80]`` tokens)
 takes the same path: the device-resident dataset keeps ``x`` in the
@@ -61,9 +73,10 @@ a ``[nb, B]`` sequence mask, and clients partition by their first label
 token when no row map was stashed.
 
 Not ported yet: the SCAFFOLD/FedDyn/FedNova/Mime/FedProx arms, robust
-aggregation, the AOT cache and compile-ahead, mesh/remesh/resize,
-checkpoint-resume and the flight recorder; in the fused rounds, dropout and
-the unfused adam and yogi server steps (their step counts are host state).
+aggregation, the AOT cache and compile-ahead, mesh/remesh/resize and the
+flight recorder.  The fused rounds run every option the per-round path
+runs: the unfused adam's and yogi's step counts are device tensors there,
+their bias corrections read from a device table.
 
 To run the fused rounds, set ``fused_rounds: true`` in the config (with
 ``device_type: cpu`` on the CPU; the card by default): ``train()`` then runs
@@ -95,6 +108,7 @@ from ...ml.engine.optimizers import (
 )
 from ...ops.cuda_graphs import graph_nodes
 from ...ops.epilogue import (
+    EpilogueSpec,
     StepRows,
     fused_epilogue,
     init_opt_state,
@@ -102,7 +116,15 @@ from ...ops.epilogue import (
     step_rows,
     weighted_reduce,
 )
+from ...utils.checkpoint import RoundCheckpointer
 from ...utils.weights import from_flax_variables, to_flax_variables
+
+#: offsets from ``random_seed`` of the rounds' draws: the bucketed per-round
+#: path's host generator, the fused rounds' card generator (the JAX
+#: package's ``PRNGKey(seed + 23)``), and dropout on both paths
+BUCKET_SEED_OFFSET = 17
+SAMPLE_SEED_OFFSET = 23
+DROPOUT_SEED_OFFSET = 31
 
 
 def bucket_plan(sizes: np.ndarray, k: int, bs: int, n_buckets: int,
@@ -184,24 +206,27 @@ def build_aggregate(args: Any, algo: str, n_total: int,
     ``aggregate`` writes the new global model into ``global_vars``' buffers
     and the server state into its tensors (the unfused arm copies its
     update's state back), so a round captured into a CUDA graph finds
-    them where it left them; ``steps`` is the fused channel's step table
-    (``ops/epilogue.step_rows``)."""
+    them where it left them; ``steps`` is the step table
+    (``ops/epilogue.step_rows``) of the fused channel, or of the unfused
+    adam's and yogi's bias corrections (its last two columns)."""
     if algo not in (FED_OPT_FEDAVG, FED_OPT_FEDOPT):
         raise NotImplementedError(
-            f"Parrot aggregation for {algo!r} is not ported yet; the port "
-            f"runs {FED_OPT_FEDAVG} and {FED_OPT_FEDOPT}")
+            f"Parrot aggregation for {algo!r} is not ported yet (port item "
+            f"A9); the port runs {FED_OPT_FEDAVG} and {FED_OPT_FEDOPT}")
     if getattr(args, "robust_agg", None):
-        raise NotImplementedError("robust_agg is not ported yet")
+        raise NotImplementedError("robust_agg is not ported yet (port item "
+                                  "A9)")
     fused_opt = spec_from_args(args) if algo == FED_OPT_FEDOPT else None
 
     def server_step(global_vars, opt_state, new_vars, weights, steps):
         if fused_opt is None:
             agg_vars = agg_stacked(new_vars, weights)
+            bias_rows = None if steps is None else steps.rows[:, -2:]
             for dt in opt_state:
                 cols = flat_vars.params_range(dt)
                 g = global_vars[dt][cols]
                 updates, new = server_tx.update(g - agg_vars[dt][cols],
-                                                opt_state[dt])
+                                                opt_state[dt], bias_rows)
                 opt_state[dt] = _into_state(opt_state[dt], new)
                 agg_vars[dt][cols] = apply_updates(g, updates)
             for dt, a in agg_vars.items():
@@ -246,11 +271,13 @@ def build_aggregate(args: Any, algo: str, n_total: int,
 
 def _into_state(old: Dict[str, Any], new: Dict[str, Any]) -> Dict[str, Any]:
     """An optimizer update's state written into ``old``'s tensors (other
-    entries, such as optax's step count, replaced); returns ``old``."""
+    entries, such as optax's step count on the host, replaced); returns
+    ``old``."""
     for k, v in new.items():
         if isinstance(v, torch.Tensor) and isinstance(old.get(k),
                                                       torch.Tensor):
-            old[k].copy_(v)
+            if v is not old[k]:
+                old[k].copy_(v)
         else:
             old[k] = v
     return old
@@ -309,23 +336,31 @@ class ParrotAPI:
         self.global_vars = self.vars.snapshot()
         self.local_update = build_local_update(bundle, args)
         self.eval_step = build_eval_step(bundle)
+        self.seed = int(getattr(args, "random_seed", 0) or 0)
         self.dropout_rng = torch.Generator().manual_seed(
-            int(getattr(args, "random_seed", 0) or 0) + 31)
+            self.seed + DROPOUT_SEED_OFFSET)
 
         # ---- server state: FedOpt's optimizer state per dtype group, over
         # its parameter columns — the fused epilogue's {m, v, t} when the
         # server optimizer maps onto a channel, optax's state otherwise
         self.server_state: Dict[str, Any] = {}
         self.server_tx: Optional[ServerOptimizer] = None
-        #: the fused channel of FedOpt's server step, its step table and
-        #: adam's step count as the host counts it
-        self._spec = None
+        #: the fused channel of FedOpt's server step; the spec of the step
+        #: table (the fused channel's, or adam's for the unfused adam's and
+        #: yogi's bias corrections) and the state key of its step count;
+        #: the table; the step count as the host counts it
+        self._spec = self._table_spec = None
+        self._count_key = "t"
         self._steps: Optional[StepRows] = None
         self._t_host = 0
         if self.algo == FED_OPT_FEDOPT:
-            spec = self._spec = spec_from_args(args)
+            spec = self._spec = self._table_spec = spec_from_args(args)
             if spec is None:
                 self.server_tx = build_server_optimizer(args)
+                if self.server_tx.betas is not None:
+                    b1, b2 = self.server_tx.betas
+                    self._table_spec = EpilogueSpec("adam", b1=b1, b2=b2)
+                    self._count_key = "count"
             opt_state = {}
             for dt in self.vars.param_dtypes():
                 p = self.global_vars[dt][self.vars.params_range(dt)]
@@ -348,19 +383,15 @@ class ParrotAPI:
         self.round_history: List[Dict[str, Any]] = []
 
         # ---- fused rounds: built at the first run_rounds_fused
+        #: the card generators of the round's draws and of its dropout
         self._fgen: Optional[torch.Generator] = None
+        self._dgen: Optional[torch.Generator] = None
         self._graph: Optional[Any] = None
         self._chunk_rm: Optional[torch.Tensor] = None
         self._last_replays = 0
         #: capture and instantiate seconds of the round's graph, and per
         #: chunk its rounds, replays and host seconds
         self.fused_stats: Dict[str, Any] = {"chunks": []}
-        if getattr(args, "fused_rounds", False):
-            self._check_fused()
-            if getattr(args, "checkpoint_dir", None):
-                raise NotImplementedError(
-                    "checkpoint_dir with fused_rounds: checkpointing is not "
-                    "ported yet (port item A11)")
 
     def _build_buckets(self) -> None:
         """Split clients into size strata (``bucket_plan``); each round
@@ -491,7 +522,7 @@ class ParrotAPI:
                 grid = {k: batches[k][i] for k in ("x", "y", "mask")}
                 if gated:
                     m = self.gated_update(self.vars, grid,
-                                          batches["valid"][i])
+                                          batches["valid"][i], self._dgen)
                 else:
                     m = self.local_update(self.vars, grid,
                                           batches["valid"][i].tolist(),
@@ -511,19 +542,21 @@ class ParrotAPI:
         return rm
 
     def _ready_steps(self, more: int, on_device: bool) -> None:
-        """For FedOpt's fused channel: a step table that covers ``more``
-        further steps, and with ``on_device`` (the fused rounds) adam's
-        step count moved onto the device from the host int a fresh or
-        replaced state holds.  A new table drops the captured round, which
-        reads the old one."""
-        if self._spec is None:
+        """For a server step that reads a step table (FedOpt's fused
+        channel; the unfused adam's and yogi's bias corrections): a table
+        that covers ``more`` further steps, and with ``on_device`` (the
+        fused rounds) the step count moved onto the device from the host
+        int a fresh or replaced state holds.  A new table drops the
+        captured round, which reads the old one."""
+        if self._table_spec is None:
             return
+        key = self._count_key
         for st in self.server_state["opt_state"].values():
-            if (st is not None and "t" in st
-                    and not isinstance(st["t"], torch.Tensor)):
-                self._t_host = int(st["t"])
+            if (st is not None and key in st
+                    and not isinstance(st[key], torch.Tensor)):
+                self._t_host = int(st[key])
                 if on_device:
-                    st["t"] = torch.tensor(self._t_host, dtype=torch.int64,
+                    st[key] = torch.tensor(self._t_host, dtype=torch.int64,
                                            device=self.device)
         need = self._t_host + int(more)
         if self._steps is None or not self._steps.covers(need):
@@ -531,7 +564,7 @@ class ParrotAPI:
                     + int(self.FUSED_CHUNK_ROUNDS))
             if self._steps is not None:
                 n = max(n, 2 * self._steps.rows.shape[0])
-            self._steps = step_rows(1.0, self._spec, n, self.device)
+            self._steps = step_rows(1.0, self._table_spec, n, self.device)
             self._graph = None
 
     def _client_sampling(self, round_idx: int) -> np.ndarray:
@@ -546,14 +579,85 @@ class ParrotAPI:
             return self._train_fused()
         return self._train_rounds()
 
+    # ---- checkpoints ----------------------------------------------------
+    def _checkpointer(self) -> Tuple[Optional[RoundCheckpointer], int]:
+        """With ``checkpoint_dir``: its checkpointer, after restoring the
+        newest checkpoint in place, and the round to start from."""
+        ckpt_dir = getattr(self.args, "checkpoint_dir", None)
+        if not ckpt_dir:
+            return None, 0
+        ckpt = RoundCheckpointer(str(ckpt_dir))
+        state = ckpt.restore()
+        if state is None:
+            return ckpt, 0
+        self._restore_state(state)
+        start = int(np.asarray(state["round_idx"])) + 1
+        logging.info("parrot: resumed from round %d", start - 1)
+        return ckpt, start
+
+    def _checkpoint_state(self, round_idx: int) -> Dict[str, Any]:
+        """The JAX package's checkpoint layout: ``round_idx``, the global
+        model as a JAX variables tree (``global_flax_variables``) and the
+        server state, per dtype group name: its tensors copied to the host,
+        its step counts as int64 scalars."""
+        opt = self.server_state.get("opt_state")
+        server: Dict[str, Any] = {}
+        if opt is not None:
+            server["opt_state"] = {
+                _dtype_name(dt): None if st is None else {
+                    k: _host_leaf(v) for k, v in st.items()}
+                for dt, st in opt.items()}
+        return {"round_idx": int(round_idx),
+                "global_vars": self.global_flax_variables(),
+                "server_state": server}
+
+    def _restore_state(self, state: Dict[str, Any]) -> None:
+        """Write a ``_checkpoint_state`` into this API in place: copied into
+        the global buffers, the server state's tensors and the device step
+        counts (a captured round reads their addresses); host counts
+        replaced.  Raises on a state of another model or server step."""
+        self.vars.load(self.global_vars)
+        from_flax_variables(state["global_vars"], self.bundle.module)
+        for dt, f in self.global_vars.items():
+            f.copy_(self.vars.flat[dt])
+        saved = (state.get("server_state") or {}).get("opt_state")
+        opt = self.server_state.get("opt_state")
+        if (saved is None) != (opt is None):
+            raise ValueError("checkpoint: the saved server state does not "
+                             "fit this server step")
+        for dt, st in (opt or {}).items():
+            name = _dtype_name(dt)
+            src = saved.get(name, {})
+            if (src is None) != (st is None) or set(src or ()) != set(
+                    st or ()):
+                raise ValueError(f"checkpoint: the saved {name} server "
+                                 f"state does not fit this server step's "
+                                 f"{sorted(st or ())}")
+            for k, v in (st or {}).items():
+                if isinstance(v, torch.Tensor) and v.dim() > 0:
+                    leaf = src[k] if isinstance(src[k], torch.Tensor) \
+                        else torch.from_numpy(np.array(src[k]))
+                    if tuple(leaf.shape) != tuple(v.shape):
+                        raise ValueError(f"checkpoint: {name} {k} of shape "
+                                         f"{tuple(leaf.shape)}, not "
+                                         f"{tuple(v.shape)}")
+                    v.copy_(leaf)
+                elif isinstance(v, torch.Tensor):
+                    v.fill_(int(np.asarray(src[k])))
+                else:
+                    st[k] = int(np.asarray(src[k]))
+                if k == self._count_key:
+                    self._t_host = int(np.asarray(src[k]))
+
     def _train_rounds(self) -> Dict[str, Any]:
         comm_rounds = int(self.args.comm_round)
-        seed = int(getattr(self.args, "random_seed", 0) or 0)
-        gen = torch.Generator().manual_seed(seed + 17)
+        gen = torch.Generator().manual_seed(self.seed + BUCKET_SEED_OFFSET)
         test_batches = self._make_test_batches()
         freq = int(getattr(self.args, "frequency_of_the_test", 5) or 5)
+        ckpt_freq = int(getattr(self.args, "checkpoint_frequency", 10) or 10)
+        ckpt, start = self._checkpointer()
         final_metrics: Dict[str, Any] = {}
-        for round_idx in range(comm_rounds):
+        for round_idx in range(start, comm_rounds):
             t0 = time.perf_counter()
             self._ready_steps(1, on_device=False)
             self._t_host += 1
@@ -579,36 +683,25 @@ class ParrotAPI:
                     "round": round_idx,
                     "round_time": time.perf_counter() - t0,
                 }, f"parrot round {round_idx}")
+            if ckpt is not None and (round_idx % ckpt_freq == 0
+                                     or round_idx == comm_rounds - 1):
+                ckpt.save(round_idx, self._checkpoint_state(round_idx))
         return final_metrics
 
     # ---- fused rounds ---------------------------------------------------
-    def _check_fused(self) -> None:
-        """Raise on what the fused rounds do not run yet: dropout (its
-        per-step generator is reseeded on the host) and the unfused adam and
-        yogi server steps (their optax step count is host state)."""
-        if float(getattr(self.bundle.module, "dropout", 0.0) or 0.0) > 0:
-            raise NotImplementedError(
-                "fused rounds of a model that trains with dropout are not "
-                "ported yet (port item A4/A6): each step's dropout "
-                "generator is seeded on the host")
-        name = str(getattr(self.args, "server_optimizer", "adam")
-                   or "adam").lower()
-        if self.server_tx is not None and name in ("adam", "yogi"):
-            raise NotImplementedError(
-                f"fused rounds with the unfused {name} server step are not "
-                f"ported yet (port item A4/A6): its step count lives on the "
-                f"host; the fused channel (fused_epilogue: true) runs adam")
-
     def _fused_setup(self) -> None:
-        """The fused rounds' device state: the generator, the gated local
+        """The fused rounds' device state: the generators (the draws', and
+        dropout's where the model trains with dropout), the gated local
         update, the index matrices and strata on the device, the round's
         metrics buffer."""
         if self._fgen is not None:
             return
-        self._check_fused()
         dev = self.device
-        seed = int(getattr(self.args, "random_seed", 0) or 0)
-        self._fgen = torch.Generator(device=dev).manual_seed(seed + 23)
+        self._fgen = torch.Generator(device=dev).manual_seed(
+            self.seed + SAMPLE_SEED_OFFSET)
+        if float(getattr(self.bundle.module, "dropout", 0.0) or 0.0) > 0:
+            self._dgen = torch.Generator(device=dev).manual_seed(
+                self.seed + DROPOUT_SEED_OFFSET)
         self.gated_update = build_local_update(self.bundle, self.args,
                                                gated=True)
         self._idx_dev = self.idx_mat.to(dev)
@@ -617,6 +710,28 @@ class ParrotAPI:
                 b[f"{k}_dev"] = b[k].to(dev)
         #: the round's train_loss, train_acc, samples and samples_trained
         self._rm = torch.zeros(4, dtype=torch.float32, device=dev)
+
+    def _reseed(self, rng: Any) -> None:
+        """Reseed the fused rounds' generators from ``rng``: an int seed, a
+        ``torch.Generator`` to draw one 62-bit seed from, or None for
+        ``seed + 23``.  The draws' generator takes the seed, dropout's the
+        seed + 8, so None gives the fresh ``seed + 23`` and ``seed + 31``.
+        Between replays only: a replay reads a registered generator's seed
+        and offset when it starts."""
+        if rng is None:
+            seed = self.seed + SAMPLE_SEED_OFFSET
+        elif isinstance(rng, torch.Generator):
+            seed = int(torch.randint(0, 1 << 62, (), generator=rng,
+                                     device=rng.device))
+        elif isinstance(rng, (int, np.integer)):
+            seed = int(rng)
+        else:
+            raise TypeError(f"rng must be an int seed, a torch.Generator or "
+                            f"None, not {type(rng).__name__}")
+        self._fgen.manual_seed(seed)
+        if self._dgen is not None:
+            self._dgen.manual_seed(
+                seed + DROPOUT_SEED_OFFSET - SAMPLE_SEED_OFFSET)
 
     def _draw(self, n: int) -> torch.Tensor:
         """A uniform permutation of ``range(n)`` on the device: the order
@@ -665,12 +780,14 @@ class ParrotAPI:
         main.wait_stream(side)
 
     def _capture(self) -> None:
-        """Capture one round into a CUDA graph, the generator registered
+        """Capture one round into a CUDA graph, the generators registered
         so that every replay draws anew, and instantiate it (the graph is
         kept: its nodes can be counted).  Capture records and runs nothing;
         a failure raises."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(self._fgen)
+        for gen in (self._fgen, self._dgen):
+            if gen is not None:
+                graph.register_generator_state(gen)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             self._fused_round()
@@ -714,16 +831,22 @@ class ParrotAPI:
                                "run_rounds_fused on a card first")
         return graph_nodes(self._graph)
 
-    def run_rounds_fused(self, n_rounds: int) -> Dict[str, np.ndarray]:
+    def run_rounds_fused(self, n_rounds: int, rng: Any = None
+                         ) -> Dict[str, np.ndarray]:
         """Run ``n_rounds`` rounds in chunks of ``FUSED_CHUNK_ROUNDS``;
         returns the per-round ``train_loss``, ``train_acc`` and ``samples``
         (the weights' sum) as numpy arrays of length ``n_rounds``, read on
-        the host once a chunk.  ``n_rounds`` ≤ 0 returns empty arrays and
-        touches no state."""
+        the host once a chunk.  ``rng`` (an int seed, a ``torch.Generator``
+        to draw one from, or None for ``seed + 23``) reseeds the draws
+        before the first round, as the JAX package's key: calls with the
+        same ``rng`` from the same state run the same rounds.  ``n_rounds``
+        ≤ 0 returns empty arrays and touches no state."""
         remaining = int(n_rounds)
         if remaining <= 0:
             return {k: np.zeros((0,), np.float32)
                     for k in ("train_loss", "train_acc", "samples")}
+        self._fused_setup()
+        self._reseed(rng)
         out = []
         while remaining > 0:
             step = min(int(self.FUSED_CHUNK_ROUNDS), remaining)
@@ -748,17 +871,21 @@ class ParrotAPI:
 
     def _train_fused(self) -> Dict[str, Any]:
         """``fused_rounds: true``: chunks of ``frequency_of_the_test``
-        rounds through ``run_rounds_fused``, an eval after each;
-        ``round_time`` is the chunk's wall, eval included, per round."""
+        rounds through ``run_rounds_fused``, each reseeded from a host
+        generator seeded ``seed + 23`` (the JAX package splits its key per
+        chunk), an eval after each, and a checkpoint after each eval with
+        ``checkpoint_dir``; ``round_time`` is the chunk's wall, eval
+        included, per round."""
         comm_rounds = int(self.args.comm_round)
         freq = int(getattr(self.args, "frequency_of_the_test", 5) or 5)
         test_batches = self._make_test_batches()
+        gen = torch.Generator().manual_seed(self.seed + SAMPLE_SEED_OFFSET)
+        ckpt, done = self._checkpointer()
         final_metrics: Dict[str, Any] = {}
-        done = 0
         while done < comm_rounds:
             t0 = time.perf_counter()
             step = min(freq, comm_rounds - done)
-            rms = self.run_rounds_fused(step)
+            rms = self.run_rounds_fused(step, rng=gen)
             done += step
             out = self.evaluate(test_batches)
             n = max(float(out["n"]), 1.0)
@@ -769,6 +896,8 @@ class ParrotAPI:
                 "round": done - 1,
                 "round_time": (time.perf_counter() - t0) / step,
             }, f"parrot fused rounds {done - step}-{done - 1}")
+            if ckpt is not None:
+                ckpt.save(done - 1, self._checkpoint_state(done - 1))
         return final_metrics
 
     def evaluate(self, test_batches: Dict[str, torch.Tensor]
@@ -793,3 +922,18 @@ class ParrotAPI:
         self.metrics_history.append(metrics)
         logging.info("%s: %s", tag, metrics)
         return metrics
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    """``torch.float32`` → ``"float32"``: a dtype group's key in a
+    checkpoint."""
+    return str(dt).rpartition(".")[2]
+
+
+def _host_leaf(v: Any) -> Any:
+    """A server-state entry as a checkpoint holds it: a tensor copied to
+    the host (``utils/serialization`` writes it), a step count — a host
+    int or a 0-d device tensor — as an int64 scalar."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
+        return v.detach().cpu()
+    return np.asarray(int(v), np.int64)

@@ -350,41 +350,65 @@ def test_a_captured_fused_epilogue_takes_each_replays_step(card):
 
 
 # ------------------------------------------------------------ fused rounds
-def _fused_api(card, tmp_path, **kw):
+def _fused_api(card, tmp_path, lm=False, **kw):
     """A ParrotAPI on the card at the CPU tests' size (ResNet-8, float32):
     8 clients, 4 a round in 2 size strata capped at 0.5, so the round draws
-    clients and window starts on the device."""
+    clients and window starts on the device.  ``lm``: the full-width
+    ``TinyTransformerLM`` at dropout 0.1, float32, on Fed-Shakespeare (8
+    clients, 4 a round, batch 8), so every batch draws its dropout masks
+    from the round's second card generator."""
     from fedml_tpu_torch.data import data_loader
-    from fedml_tpu_torch.ml.engine.model_bundle import ModelBundle
+    from fedml_tpu_torch.ml.engine.model_bundle import TASK_LM, ModelBundle
+    from fedml_tpu_torch.models.nlp import TinyTransformerLM
     from fedml_tpu_torch.simulation.parrot.parrot_api import ParrotAPI
 
-    args = Config(dataset="cifar10", backend="parrot",
-                  partition_method="hetero", client_num_in_total=8,
-                  client_num_per_round=4, comm_round=8, epochs=1,
-                  batch_size=16, learning_rate=0.05, data_scale=0.05,
-                  compute_dtype="float32", enable_tracking=False,
-                  hetero_buckets=2, hetero_bucket_cap=0.5,
-                  data_cache_dir=str(tmp_path), **kw)
+    base = dict(dataset="cifar10", backend="parrot",
+                partition_method="hetero", client_num_in_total=8,
+                client_num_per_round=4, comm_round=8, epochs=1,
+                batch_size=16, learning_rate=0.05, data_scale=0.05,
+                compute_dtype="float32", enable_tracking=False,
+                hetero_buckets=2, hetero_bucket_cap=0.5,
+                data_cache_dir=str(tmp_path))
+    if lm:
+        base.update(dataset="fed_shakespeare", model="bert_tiny",
+                    batch_size=8, hetero_buckets=1, hetero_bucket_cap=0.0)
+    args = Config(**dict(base, **kw))
     torch.manual_seed(0)
-    bundle = ModelBundle(CIFARResNet(depth=8, num_classes=10), (32, 32, 3),
-                         10)
+    if lm:
+        bundle = ModelBundle(TinyTransformerLM(dropout=0.1), (80,), 90,
+                             task=TASK_LM, input_dtype=torch.int32)
+    else:
+        bundle = ModelBundle(CIFARResNet(depth=8, num_classes=10),
+                             (32, 32, 3), 10)
     return ParrotAPI(args, card, data_loader.load(args), bundle)
 
 
 FUSED_ALGOS = {"FedAvg": {},
                "FedOpt": dict(federated_optimizer="FedOpt",
                               server_optimizer="adam")}
+#: the replay check's cases: FUSED_ALGOS, config 3's model at dropout 0.1
+#: (server adam 0.1), and the unfused adam and yogi, their step count on
+#: the device
+REPLAY_CASES = {
+    **FUSED_ALGOS,
+    "LM-dropout": dict(lm=True, federated_optimizer="FedOpt",
+                       server_optimizer="adam", server_lr=0.1),
+    "unfused-adam": dict(federated_optimizer="FedOpt",
+                         server_optimizer="adam", fused_epilogue=False),
+    "yogi": dict(federated_optimizer="FedOpt", server_optimizer="yogi")}
 
 
 def _round_state(api):
     """Copies of what a round changes: the globals, the server state's
-    tensors and the generator's state."""
+    tensors (the device step counts among them) and the generators'
+    states."""
     opt = api.server_state.get("opt_state", {})
     return {"global": {dt: f.clone() for dt, f in api.global_vars.items()},
             "opt": {dt: {k: v.clone() for k, v in (st or {}).items()
                          if isinstance(v, torch.Tensor)}
                     for dt, st in opt.items()},
-            "gen": api._fgen.get_state()}
+            "gen": api._fgen.get_state(),
+            "dgen": None if api._dgen is None else api._dgen.get_state()}
 
 
 def _set_round_state(api, state):
@@ -394,18 +418,39 @@ def _set_round_state(api, state):
         for k, v in state["opt"][dt].items():
             st[k].copy_(v)
     api._fgen.set_state(state["gen"])
+    if state["dgen"] is not None:
+        api._dgen.set_state(state["dgen"])
+
+
+def _step_count(state):
+    st = state["opt"].get(torch.float32, {})
+    count = st.get("t", st.get("count"))
+    return None if count is None else int(count)
+
+
+def _assert_same_rounds(rows_a, a, rows_b, b):
+    assert torch.equal(rows_a, rows_b)
+    assert torch.equal(a["gen"], b["gen"])
+    if a["dgen"] is not None:
+        assert torch.equal(a["dgen"], b["dgen"])
+    for dt in a["global"]:
+        assert torch.equal(a["global"][dt], b["global"][dt])
+    for dt, st in a["opt"].items():
+        for k in st:
+            assert torch.equal(st[k], b["opt"][dt][k]), k
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("algo", sorted(FUSED_ALGOS))
+@pytest.mark.parametrize("algo", sorted(REPLAY_CASES))
 def test_replayed_rounds_equal_uncaptured_rounds(algo, card, tmp_path):
-    """From the same globals, server state and generator state, two
+    """From the same globals, server state and generator states, two
     replays of the captured round and two uncaptured runs of its body give
     the same bits, under deterministic algorithms: metrics, globals, the
-    server state and the generator's state after."""
+    server state (device step counts included) and the generators' states
+    after."""
     torch.use_deterministic_algorithms(True)
     try:
-        api = _fused_api(card, tmp_path, **FUSED_ALGOS[algo])
+        api = _fused_api(card, tmp_path, **REPLAY_CASES[algo])
         api.run_rounds_fused(1)      # a real round uncaptured, then capture
         start = _round_state(api)
         replayed = api._fused_chunk(2).clone()
@@ -420,16 +465,93 @@ def test_replayed_rounds_equal_uncaptured_rounds(algo, card, tmp_path):
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
-    assert torch.equal(replayed, torch.stack(rows))
-    assert torch.equal(after["gen"], eager["gen"])
+    _assert_same_rounds(replayed, after, torch.stack(rows), eager)
     for dt in after["global"]:
-        assert torch.equal(after["global"][dt], eager["global"][dt])
         assert not torch.equal(after["global"][dt], start["global"][dt])
-    for dt, st in after["opt"].items():
-        for k in st:
-            assert torch.equal(st[k], eager["opt"][dt][k]), k
-    if algo == "FedOpt":
-        assert int(after["opt"][torch.float32]["t"]) == 3
+    if algo != "FedAvg":
+        assert _step_count(after) == 3
+    assert (api._dgen is not None) == (algo == "LM-dropout")
+
+
+@pytest.mark.gpu
+def test_a_reseed_between_replays_runs_a_fresh_apis_rounds(card, tmp_path):
+    """``run_rounds_fused(2, rng=9)`` on an API whose round is captured
+    (both rounds replays, the generators reseeded between replays) gives
+    the bits of a fresh API, from the same globals and server state, run
+    with ``rng=9`` (its first round uncaptured, its second a replay of its
+    own capture), under deterministic algorithms: config 3's model at
+    dropout 0.1, so both generators are reseeded."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = REPLAY_CASES["LM-dropout"]
+        api = _fused_api(card, tmp_path, **kw)
+        api.run_rounds_fused(1)
+        start = _round_state(api)
+        t = _step_count(start)
+        got = api.run_rounds_fused(2, rng=9)
+        assert api._last_replays == 2
+        after = _round_state(api)
+
+        fresh = _fused_api(card, tmp_path, **kw)
+        for dt, f in fresh.global_vars.items():
+            f.copy_(start["global"][dt])
+        for dt, st in fresh.server_state["opt_state"].items():
+            for k, v in start["opt"][dt].items():
+                if k == "t":
+                    st[k] = t
+                else:
+                    st[k].copy_(v)
+        want = fresh.run_rounds_fused(2, rng=9)
+        assert fresh._last_replays == 1
+        again = _round_state(fresh)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in want:
+        assert (got[k] == want[k]).all(), k
+    for dt in after["global"]:
+        assert torch.equal(after["global"][dt], again["global"][dt])
+    for k in ("m", "v", "t"):
+        assert torch.equal(after["opt"][torch.float32][k],
+                           again["opt"][torch.float32][k]), k
+    assert torch.equal(after["gen"], again["gen"])
+    assert torch.equal(after["dgen"], again["dgen"])
+
+
+@pytest.mark.gpu
+def test_a_restored_round_replays_as_it_runs_uncaptured(card, tmp_path):
+    """A checkpoint written to a file and restored into an API whose round
+    is captured: one replay from the restored state equals one uncaptured
+    run of the round body from the same restored state (and the same
+    generator states), bit for bit, under deterministic algorithms — the
+    restore wrote into the addresses the graph reads."""
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        api = _fused_api(card, tmp_path, **FUSED_ALGOS["FedOpt"])
+        api.run_rounds_fused(2)          # uncaptured, capture, one replay
+        ckpt = RoundCheckpointer(str(tmp_path / "ckpt"))
+        ckpt.save(1, api._checkpoint_state(1))
+        api.run_rounds_fused(2)          # move on past the checkpoint
+        api._restore_state(ckpt.restore())
+        restored = _round_state(api)
+        assert _step_count(restored) == 2
+        replayed = api._fused_chunk(1).clone()
+        assert api._last_replays == 1
+        after = _round_state(api)
+        api._restore_state(ckpt.restore())
+        api._fgen.set_state(restored["gen"])
+        api._fused_round()
+        eager = _round_state(api)
+        row = api._rm.clone()[None]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _assert_same_rounds(replayed, after, row, eager)
+    assert _step_count(after) == 3
+    assert not torch.equal(after["global"][torch.float32],
+                           restored["global"][torch.float32])
 
 
 @pytest.mark.gpu

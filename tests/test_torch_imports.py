@@ -39,7 +39,8 @@ def test_the_port_has_modules_to_check():
                 "serving/quantization.py",
                 "models/nlp.py", "data/natural.py", "data/tff_text.py",
                 "ops/wire_compression.py", "utils/compression.py",
-                "utils/serialization.py", "utils/tree.py",
+                "utils/serialization.py", "utils/checkpoint.py",
+                "utils/tree.py",
                 "core/distributed/communication/message.py",
                 "core/distributed/communication/inprocess/"
                 "inproc_comm_manager.py",

@@ -57,6 +57,19 @@ from fedml_tpu_torch.utils.weights import opt_state_from_jax, opt_state_to_jax
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch's CPU ops on one thread (see ``tests/test_torch_fused_rounds.py``:
+    beside other test processes, a thread pool per process oversubscribes
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _args(cls, tmp_path, **kw):
     base = dict(dataset="cifar10", backend="parrot", partition_method="hetero",
                 client_num_in_total=4, client_num_per_round=2, comm_round=2,
@@ -259,8 +272,7 @@ def test_two_fedopt_rounds_match_jax(arm, tmp_path):
 
 @pytest.mark.parametrize("bad", [dict(federated_optimizer="FedProx"),
                                  dict(robust_agg="median"),
-                                 dict(fused_rounds=True,
-                                      checkpoint_dir="ckpt")])
+                                 dict(federated_optimizer="FedNova")])
 def test_unported_options_raise(bad, tmp_path):
     args = _args(Config, tmp_path, **bad)
     with pytest.raises(NotImplementedError):
