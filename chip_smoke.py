@@ -49,7 +49,8 @@ raises and ends the run with a non-zero exit:
    also in the fused rounds' launch, its step count on the device);
 5. parity — one round of the port on the card against the same round on
    the CPU (the CPU path is held to the JAX package by the tests): FedAvg,
-   and FedOpt with server adam, sgd with momentum 0.9 and sgd without, on
+   FedOpt with server adam, sgd with momentum 0.9 and sgd without, and
+   FedProx, FedNova, SCAFFOLD, FedDyn and Mime (their server state too), on
    a ResNet-8; FedOpt (server adam) on the transformer language model
    at dropout 0, whose training runs the flash kernel forward and the
    blockwise backward; one cross-silo FedAvg round of a ResNet-8 over
@@ -143,10 +144,26 @@ raises and ends the run with a non-zero exit:
     for bit against the file before its first round, captures and replays
     one chunk with the seed of the first drive's second chunk; and the
     unfused yogi arm (optax's yogi, its step count on the device) runs 3
-    fused rounds of ResNet-20 on the north-star data.
+    fused rounds of ResNet-20 on the north-star data;
+18. main path, the other federated optimizers — (a) the north-star config
+    of phase 6 per round as FedProx (μ 0.1), FedNova, SCAFFOLD, FedDyn (α
+    0.01) and Mime (server momentum 0.9), 2 rounds and the evals each:
+    rounds/s, the eval metrics, the weighted-reduce launches against those
+    the arm implies (per round and dtype group: 1 for FedProx and FedDyn,
+    2 for FedNova, SCAFFOLD and Mime), peak memory; (b) SCAFFOLD fused at
+    the same width (one uncaptured round, the capture, 3 replays; a
+    replayed round under sync-debug "error" that changes only its sampled
+    clients' rows of ``c_locals``), and the other four arms fused on
+    ResNet-20, 2 clients a round (1 uncaptured round, the capture, 2
+    replays): capture and instantiate seconds, the graph's weighted-reduce
+    nodes, rounds/s over the replays; (c) the SP backend: BASELINE config
+    1 (FedAvg logistic regression on the 60k/10k MNIST stand-in, 10
+    clients all in every round, 4 rounds) and config 3's FedProx arm at
+    phase 9's width (2 rounds, an eval each, the flash kernel in every
+    eval).
 
 Every path (the fold in phase 3, the card rounds of phase 5, phases 6, 7,
-9, 11, 12, 14, 15, 16 and 17) is driven with the kernels' launch counts
+9, 11, 12, 14, 15, 16, 17 and 18) is driven with the kernels' launch counts
 set to 0 just before it and read just after (phases 16 and 17: the
 uncaptured round and the capture; replays launch nothing from Python, and
 the graph's nodes are counted instead).  Then one JSON line of per-kernel numbers and, last, the
@@ -215,7 +232,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 3
-PHASES = 17
+PHASES = 18
 #: the JAX package's north-star config (bench.py), cut to 3 rounds, with
 #: the synthetic stand-in at the 50k/10k size of CIFAR-10
 MAIN_CONFIG = dict(
@@ -1480,16 +1497,57 @@ def _flat_tree(tree, coll):
     return np.concatenate(out)
 
 
-#: the card rounds of the parity phase: (label, config, channel)
+#: the card rounds of the parity phase: (label, config, channel, weighted
+#: reduces per dtype group)
 PARITY = [
-    ("FedAvg", {}, None),
-    ("FedOpt adam", dict(FEDOPT), "adam"),
+    ("FedAvg", {}, None, 1),
+    ("FedOpt adam", dict(FEDOPT), "adam", 1),
     ("FedOpt sgd momentum 0.9", dict(federated_optimizer="FedOpt",
                                      server_optimizer="sgd", server_lr=0.5,
-                                     server_momentum=0.9), "momentum"),
+                                     server_momentum=0.9), "momentum", 1),
     ("FedOpt sgd", dict(federated_optimizer="FedOpt", server_optimizer="sgd",
-                        server_lr=0.5, server_momentum=0.0), "sgd"),
+                        server_lr=0.5, server_momentum=0.0), "sgd", 1),
+    ("FedProx", dict(federated_optimizer="FedProx"), None, 1),
+    ("FedNova", dict(federated_optimizer="FedNova"), None, 2),
+    ("SCAFFOLD", dict(federated_optimizer="SCAFFOLD"), None, 2),
+    ("FedDyn", dict(federated_optimizer="FedDyn"), None, 1),
+    ("Mime", dict(federated_optimizer="Mime"), None, 2),
 ]
+#: per round and dtype group, the weighted reduces of each arm's server
+#: step: the model, plus FedNova's nova_d, SCAFFOLD's c_delta, Mime's
+#: full_grad
+ARM_REDUCES = {"FedProx": 1, "FedNova": 2, "SCAFFOLD": 2, "FedDyn": 1,
+               "Mime": 2}
+
+
+def _state_bound(name, api, tol=1e-3):
+    """Card-vs-CPU bound of server state ``name`` from the variables'
+    ``tol`` (``tests/test_torch_parrot_algorithms.py``'s derivation):
+    SCAFFOLD's variates are parameter moves over τ·lr (τ the fewest steps of
+    a client), FedDyn's state α times parameter moves, Mime's momentum
+    (1 − β) times a mean of gradients (a gradient's bound is the
+    variables' over lr)."""
+    lr = float(api.args.learning_rate)
+    tau = min(-(-api.local_num_dict[c] // api.bs)
+              for c in range(api.n_total))
+    return {"c_locals": tol / (tau * lr), "c_global": tol / (tau * lr),
+            "lambdas": tol * float(api.args.feddyn_alpha),
+            "h": tol * float(api.args.feddyn_alpha),
+            "momentum": tol / lr * (1 - float(api.args.server_momentum))
+            }[name]
+
+
+def _state_diffs(gpu_api, cpu_api):
+    """Per server-state entry of the arm (not FedOpt's): (max |card − CPU|,
+    bound)."""
+    out = {}
+    for name, groups in gpu_api.server_state.items():
+        if name == "opt_state":
+            continue
+        diff = max(float((t.cpu() - cpu_api.server_state[name][dt]).abs()
+                         .max()) for dt, t in groups.items())
+        out[name] = (diff, _state_bound(name, gpu_api))
+    return out
 
 
 def parity_phase(dev):
@@ -1502,15 +1560,15 @@ def parity_phase(dev):
     least 99 % of them within 1e-5 (the ones that do not flip agree to
     float32 rounding)."""
     launches = {}
-    for label, kw, channel in PARITY:
+    for label, kw, channel, reduces in PARITY:
         reset_launches()
         gpu_vars, gpu_m, api = _small_round(dev, **kw)
         torch.cuda.synchronize()
         launches[label] = read_launches()
-        cpu_vars, cpu_m, _ = _small_round(torch.device("cpu"), **kw)
+        cpu_vars, cpu_m, cpu_api = _small_round(torch.device("cpu"), **kw)
         groups = len(api.global_vars)
         if channel is None:
-            check(launches[label]["weighted_reduce"] == groups
+            check(launches[label]["weighted_reduce"] == reduces * groups
                   and launches[label]["fused_epilogue"] == 0,
                   f"{label}: launches {launches[label]}")
         else:
@@ -1518,6 +1576,10 @@ def parity_phase(dev):
                   and launches[label][f"fused_epilogue.{channel}"] == 1
                   and launches[label]["weighted_reduce"] == groups,
                   f"{label}: launches {launches[label]}")
+        states = _state_diffs(api, cpu_api)
+        for name, (diff, bound) in states.items():
+            check(diff <= bound, f"{label}: card vs CPU max |Δ{name}| "
+                  f"{diff:.3g}, bound {bound:.3g}")
         d_stats = np.abs(_flat_tree(gpu_vars, "batch_stats")
                          - _flat_tree(cpu_vars, "batch_stats"))
         d_params = np.abs(_flat_tree(gpu_vars, "params")
@@ -1540,6 +1602,8 @@ def parity_phase(dev):
         check(dl <= 1e-4 * max(1.0, abs(cpu_m["train_loss"])),
               f"{label}: train_loss {gpu_m['train_loss']} vs "
               f"{cpu_m['train_loss']}")
+        extra += "".join(f", max |Δ{name}| {diff:.2e} (bound {bound:.1e})"
+                         for name, (diff, bound) in states.items())
         phase(5, "parity", f"ResNet-8 f32 round, {label}, card vs CPU: max "
               f"|Δparams| {d_params.max():.2e}, max |Δbatch_stats| "
               f"{d_stats.max():.2e}{extra}, train_loss "
@@ -1762,7 +1826,7 @@ def _drive(config, unit="samples", rounds=ROUNDS, dataset=None):
     bundle = fedml_tpu_torch.model.create(args, dataset[-1])
     runner = FedMLRunner(args, device, dataset, bundle)
     api = runner.runner
-    start = {dt: f.clone() for dt, f in api.global_vars.items()}
+    start = [f.clone() for f in _global_leaves(api)]
     final = runner.run()
     torch.cuda.synchronize()
     launches = read_launches()
@@ -1780,11 +1844,10 @@ def _drive(config, unit="samples", rounds=ROUNDS, dataset=None):
     steady = hist[1:]
     steady_secs = sum(r["train_seconds"] for r in steady)
     samples = sum(r["samples_trained"] for r in hist)
-    moved = max(float((api.global_vars[dt] - start[dt]).abs().max())
-                for dt in start)
+    moved = max(float((f - f0).abs().max())
+                for f, f0 in zip(_global_leaves(api), start))
     check(moved > 0.0, "the global variables did not move")
-    check(all(bool(torch.isfinite(f).all())
-              for f in api.global_vars.values()),
+    check(all(bool(torch.isfinite(f).all()) for f in _global_leaves(api)),
           "non-finite global variables")
     check(math.isfinite(final["test_acc"]) and 0 <= final["test_acc"] <= 1,
           f"test_acc {final['test_acc']}")
@@ -1792,6 +1855,13 @@ def _drive(config, unit="samples", rounds=ROUNDS, dataset=None):
                 secs=secs, steady=len(steady) / steady_secs, samples=samples,
                 t_data=t_data, total=total, dataset=dataset,
                 peak=torch.cuda.max_memory_allocated())
+
+
+def _global_leaves(api):
+    """The global model's tensors: the Parrot API's flat buffer per dtype,
+    or the SP API's variables tree."""
+    g = api.global_vars
+    return tree_leaves(g) if "params" in g else list(g.values())
 
 
 #: the per-round path's rounds/s after round 0, by main-path label
@@ -3722,6 +3792,238 @@ def lm_fused_phase(lm_data, main_data):
     return launches, y_launches
 
 
+#: phase 18's arms, each with the setting named in its line
+ARMS = (("FedProx", dict(fedprox_mu=0.1)), ("FedNova", {}),
+        ("SCAFFOLD", {}), ("FedDyn", dict(feddyn_alpha=0.01)),
+        ("Mime", dict(server_momentum=0.9)))
+ARM_ROUNDS = 2
+#: the fused arms on ResNet-20, phase 16's check cohort: 3 rounds in one
+#: chunk (one uncaptured, 2 replays), then 2 more replays timed alone
+ARM_FUSED = dict(FUSED_CONFIG, **FUSED_CHECK, model="resnet20",
+                 comm_round=3, frequency_of_the_test=3)
+#: BASELINE config 1 (tests/test_baseline_configs.py:21-27) on its data's
+#: full size: FedAvg logistic regression on the 60k/10k MNIST stand-in, SP,
+#: 10 clients all in every round, 4 rounds
+SP_CONFIG1 = dict(
+    dataset="mnist", model="lr", training_type="simulation", backend="sp",
+    partition_method="hetero", partition_alpha=0.5, client_num_in_total=10,
+    client_num_per_round=10, comm_round=4, epochs=1, batch_size=16,
+    learning_rate=0.1, frequency_of_the_test=1, enable_tracking=False,
+    compute_dtype="float32", data_scale=10, random_seed=0,
+    data_cache_dir=os.path.join(ROOT, ".data_cache", "chip_smoke_mnist"))
+#: config 3's FedProx arm on SP at phase 9's width, 2 rounds, an eval each
+SP_CONFIG3 = dict(LM_CONFIG, backend="sp", federated_optimizer="FedProx",
+                  fedprox_mu=0.1, comm_round=2)
+
+
+def _state_mb(api):
+    """The arm's server state on the card, in MB, by name."""
+    return {name: sum(t.numel() * t.element_size() for t in g.values()) / 1e6
+            for name, g in api.server_state.items() if name != "opt_state"}
+
+
+def arms_per_round(main_data):
+    """Phase 18 (a): each arm on the north-star config, per round."""
+    total = 0
+    for arm, kw in ARMS:
+        run = _drive(dict(MAIN_CONFIG, federated_optimizer=arm,
+                          comm_round=ARM_ROUNDS, **kw),
+                     rounds=ARM_ROUNDS, dataset=main_data)
+        api, launches, final = run["api"], run["launches"], run["final"]
+        groups = len(api.global_vars)
+        want = ARM_ROUNDS * ARM_REDUCES[arm] * groups
+        check(launches["weighted_reduce"] == want
+              and launches["fused_epilogue"] == 0,
+              f"{arm}: {ARM_ROUNDS} rounds over {groups} dtype group(s) "
+              f"launched {launches}; want weighted_reduce {want}")
+        total += launches["weighted_reduce"]
+        state = _state_mb(api)
+        phase(18, "main path", f"Parrot {arm} "
+              + "".join(f"{k} {v} " for k, v in kw.items())
+              + f"{api.args.model} {api.args.compute_dtype}, {api.n_total} "
+              f"clients, {api.k} per round in {api.n_buckets} strata, "
+              f"{ARM_ROUNDS} rounds: {ARM_ROUNDS / run['secs']:.3f} rounds/s "
+              f"({run['steady']:.3f} after round 0), "
+              f"{run['samples'] / run['secs']:.1f} samples/s; evals at "
+              f"rounds {[m['round'] for m in api.metrics_history]}, final "
+              f"test_acc {final['test_acc']:.4f} test_loss "
+              f"{final['test_loss']:.4f}; weighted_reduce "
+              f"{launches['weighted_reduce']} (the arm implies "
+              f"{ARM_REDUCES[arm]} a round per dtype group: {want}); server "
+              f"state "
+              + (", ".join(f"{k} {v:.1f} MB" for k, v in state.items())
+                 or "none")
+              + f"; peak memory {run['peak'] / 2**30:.2f} GiB; data "
+              f"{run['t_data']:.1f} s, whole drive {run['total']:.1f} s")
+        run = api = None
+    return total
+
+
+def _replay_rate(api, n):
+    """Rounds/s over ``n`` further replayed rounds, ended by reading their
+    losses."""
+    t0 = time.perf_counter()
+    rows = api._fused_chunk(n).cpu()
+    secs = time.perf_counter() - t0
+    check(api._last_replays == n and bool(torch.isfinite(rows).all()),
+          f"{api._last_replays} replays, metrics {rows}")
+    return n / secs
+
+
+def arms_fused(main_data):
+    """Phase 18 (b): SCAFFOLD fused at full width, the other arms fused on
+    ResNet-20."""
+    total = 0
+    run = _drive(dict(FUSED_CONFIG, federated_optimizer="SCAFFOLD",
+                      comm_round=4, frequency_of_the_test=4),
+                 rounds=4, dataset=main_data)
+    api, launches = run["api"], run["launches"]
+    stats = api.fused_stats
+    _fused_chunk_checks(api, 4, 4)
+    groups = len(api.global_vars)
+    n_nodes, kinds, names, _ = _graph_summary(api)
+    reduce = sum("weighted_reduce_kernel" in n for n in names)
+    want = ARM_REDUCES["SCAFFOLD"] * groups
+    check(reduce == want and launches["weighted_reduce"] == 2 * want,
+          f"the captured SCAFFOLD round holds {reduce} weighted-reduce "
+          f"nodes, not {want}; launches outside replays {launches}")
+    total += launches["weighted_reduce"]
+    table = api.server_state["c_locals"][torch.float32]
+    before = table.clone()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows = api._fused_chunk(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_replay = time.perf_counter() - t0
+    check(api._last_replays == 1 and bool(torch.isfinite(rows).all()),
+          f"the SCAFFOLD replay: {api._last_replays} replays, {rows}")
+    ids = sorted(api.round_ids.cpu().tolist())
+    changed = (table != before).any(dim=1).nonzero().flatten().tolist()
+    check(changed == ids, f"a replayed SCAFFOLD round changed the c_locals "
+          f"rows {changed}, its clients were {ids}")
+    before = None
+    rate = _replay_rate(api, 3)
+    final = run["final"]
+    phase(18, "fused", f"SCAFFOLD fused rounds, {api.args.model} "
+          f"{api.args.compute_dtype}, {api.n_total} clients, {api.k} per "
+          f"round in {api.n_buckets} strata, 4 rounds in one chunk (round 1 "
+          f"uncaptured, one capture, {stats['chunks'][0]['replays']} "
+          f"replays): capture {stats['capture_s']:.2f} s, instantiate "
+          f"{stats['instantiate_s']:.2f} s; the round's graph {n_nodes} "
+          f"nodes ({kinds}), {reduce} weighted_reduce; a further replayed "
+          f"round under sync-debug 'error' raised nothing "
+          f"({t_replay:.2f} s) and changed the c_locals rows of exactly its "
+          f"{len(ids)} clients {ids}; {rate:.3f} rounds/s over 3 more "
+          f"replays (host clock, ended by reading their losses) against "
+          f"phase 18's per-round path; final test_acc "
+          f"{final['test_acc']:.4f}; server state "
+          + ", ".join(f"{k} {v:.1f} MB" for k, v in _state_mb(api).items())
+          + f"; peak memory {run['peak'] / 2**30:.2f} GiB; whole drive "
+          f"{run['total']:.1f} s")
+    run = api = table = None
+    for arm, kw in ARMS:
+        if arm == "SCAFFOLD":
+            continue
+        run = _drive(dict(ARM_FUSED, federated_optimizer=arm, **kw),
+                     rounds=ARM_FUSED["comm_round"], dataset=main_data)
+        api, launches = run["api"], run["launches"]
+        _fused_chunk_checks(api, ARM_FUSED["comm_round"],
+                            ARM_FUSED["frequency_of_the_test"])
+        groups = len(api.global_vars)
+        n_nodes, kinds, names, _ = _graph_summary(api)
+        reduce = sum("weighted_reduce_kernel" in n for n in names)
+        want = ARM_REDUCES[arm] * groups
+        check(reduce == want and launches["weighted_reduce"] == 2 * want
+              and launches["fused_epilogue"] == 0,
+              f"the captured {arm} round holds {reduce} weighted-reduce "
+              f"nodes, not {want}; launches outside replays {launches}")
+        total += launches["weighted_reduce"]
+        rate = _replay_rate(api, 2)
+        stats = api.fused_stats
+        phase(18, "fused", f"{arm} fused rounds, {api.args.model} "
+              f"{api.args.compute_dtype}, {api.k} clients a round in "
+              f"{api.n_buckets} strata capped at {api.bucket_cap}, "
+              f"{ARM_FUSED['comm_round']} rounds in one chunk (round 1 "
+              f"uncaptured, a capture, {stats['chunks'][0]['replays']} "
+              f"replays): capture {stats['capture_s']:.2f} s, instantiate "
+              f"{stats['instantiate_s']:.2f} s; the round's graph {n_nodes} "
+              f"nodes ({kinds}), {reduce} weighted_reduce; {rate:.3f} "
+              f"rounds/s over 2 more replays; final test_acc "
+              f"{run['final']['test_acc']:.4f}; peak memory "
+              f"{run['peak'] / 2**30:.2f} GiB; whole drive "
+              f"{run['total']:.1f} s")
+        run = api = None
+    return total
+
+
+def arms_sp(lm_data):
+    """Phase 18 (c): BASELINE config 1 and config 3's FedProx arm on the SP
+    backend."""
+    run = _drive(SP_CONFIG1, rounds=SP_CONFIG1["comm_round"])
+    api, launches, final = run["api"], run["launches"], run["final"]
+    rounds = SP_CONFIG1["comm_round"]
+    check(type(api).__name__ == "FedSimAPI"
+          and launches["weighted_reduce"] == rounds
+          and launches["fused_epilogue"] == 0,
+          f"SP config 1 ran {type(api).__name__} and launched {launches}")
+    check(final["test_acc"] > 0.5, f"SP config 1 test_acc {final}")
+    reduces = launches["weighted_reduce"]
+    phase(18, "SP", f"BASELINE config 1: SP FedAvg {api.args.model} on "
+          f"{api.args.dataset} ({api.train_num} train / {api.test_num} test),"
+          f" {api.args.client_num_in_total} clients all in every round, "
+          f"{rounds} rounds: {rounds / run['secs']:.3f} rounds/s "
+          f"({run['steady']:.3f} after round 0), {run['samples'] / run['secs']:.1f}"
+          f" samples/s, test_acc by round "
+          + ", ".join(f"{m['test_acc']:.4f}" for m in api.metrics_history)
+          + f"; weighted_reduce {reduces} (1 a round); peak memory "
+          f"{run['peak'] / 2**30:.3f} GiB; data {run['t_data']:.1f} s, whole "
+          f"drive {run['total']:.1f} s")
+    run = api = None
+    run = _drive(SP_CONFIG3, unit="tokens", rounds=SP_CONFIG3["comm_round"],
+                 dataset=lm_data)
+    api, launches, final = run["api"], run["launches"], run["final"]
+    rounds = SP_CONFIG3["comm_round"]
+    evals = len(api.metrics_history)
+    bs = int(api.args.batch_size)
+    want_flash = 2 * (-(-int(api.test_num) // bs)) * evals
+    check(type(api).__name__ == "FedSimAPI" and evals == rounds
+          and launches["flash_attention"] == want_flash
+          and launches["weighted_reduce"] == rounds
+          and launches["fused_epilogue"] == 0,
+          f"SP config 3 FedProx: {evals} evals, launches {launches}; want "
+          f"flash_attention {want_flash}, weighted_reduce {rounds}")
+    reduces += launches["weighted_reduce"]
+    phase(18, "SP", f"BASELINE config 3, FedProx arm (mu "
+          f"{api.args.fedprox_mu}) on SP: {api.args.model} "
+          f"{api.args.compute_dtype} dropout {api.bundle.module.dropout} on "
+          f"{api.args.dataset}, {api.args.client_num_in_total} clients, "
+          f"{api.args.client_num_per_round} per round, {rounds} rounds: "
+          f"{rounds / run['secs']:.3f} rounds/s, "
+          f"{run['samples'] / run['secs']:.1f} train tokens/s; token "
+          f"test_acc by round "
+          + ", ".join(f"{m['test_acc']:.4f}" for m in api.metrics_history)
+          + f"; flash_attention {launches['flash_attention']} in the "
+          f"{evals} evals (2 per eval batch), weighted_reduce "
+          f"{launches['weighted_reduce']}; peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB; whole drive {run['total']:.1f} s")
+    return reduces, launches["flash_attention"]
+
+
+def arms_phase(main_data, lm_data):
+    """Phase 18: the other federated optimizers, per round, fused and on
+    SP; returns its weighted-reduce and flash launches."""
+    t0 = time.perf_counter()
+    reduces = arms_per_round(main_data)
+    reduces += arms_fused(main_data)
+    sp_reduces, flash = arms_sp(lm_data)
+    phase(18, "card", f"{_smi_line()}; phase 18 "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"weighted_reduce": reduces + sp_reduces,
+            "flash_attention": flash}
+
+
 def main():
     name, _ = device_phase()
     # the port's device choice: the card, with TF32 off
@@ -3763,12 +4065,15 @@ def main():
     po_launches = po_main_path_phase(15, dev)
     fused_avg, fused_opt = fused_phase(name, main_data)
     lm_fused, yogi_fused = lm_fused_phase(lm_data, main_data)
+    arms = arms_phase(main_data, lm_data)
     main_data = lm_data = None
     # launches, each from its own path: the weighted reduce from the
-    # ResNet main paths (phase 17's yogi drive too), adam from the FedOpt
+    # ResNet main paths (phase 17's yogi drive and phase 18's arms too, per
+    # round, fused and on SP), adam from the FedOpt
     # main paths (phase 17's config 3 too), momentum and sgd
     # from their card rounds in phase 5, mix from the async fold in phase
-    # 3, the flash forward from the BERT-tiny path's eval passes, the wire
+    # 3, the flash forward from the BERT-tiny paths' eval passes (Parrot
+    # and, in phase 18, SP), the wire
     # kernels from the int8 cross-silo path, the fold from the fed-LLM path,
     # the conv kernels from the multi-client conv pass, the pallas_ops
     # kernels from their paths in phase 15
@@ -3781,12 +4086,14 @@ def main():
         "wire_compression.dequantize":
             cs_launches["wire_compression.dequantize"],
         "flash_attention": (lm_launches["flash_attention"]
-                            + lm_fused["flash_attention"]),
+                            + lm_fused["flash_attention"]
+                            + arms["flash_attention"]),
         "weighted_reduce": (avg_launches["weighted_reduce"]
                             + opt_launches["weighted_reduce"]
                             + fused_avg["weighted_reduce"]
                             + fused_opt["weighted_reduce"]
-                            + yogi_fused["weighted_reduce"]),
+                            + yogi_fused["weighted_reduce"]
+                            + arms["weighted_reduce"]),
         "adam": (opt_launches["fused_epilogue.adam"]
                  + lm_launches["fused_epilogue.adam"]
                  + fused_opt["fused_epilogue.adam"]

@@ -11,10 +11,11 @@ The same 5-step entry as ``fedml_tpu`` (``fedml_tpu/__init__.py``):
 plus the one-liner ``fedml_tpu_torch.run_simulation()``.  Entry points run
 on the card unless ``device_type: cpu`` asks for the CPU.  The port imports
 torch and numpy, never JAX or ``fedml_tpu``; what it needs from the JAX
-package it carries as its own copy.  The ported slices are Parrot FedAvg
-and FedOpt on the CIFAR ResNets and on BERT-tiny, cross-silo FedAvg over
-INPROC and, on it, the fed-LLM plane (see ROADMAP.md for what is still to
-come).
+package it carries as its own copy.  The ported slices are the SP and Parrot
+simulations with FedAvg, FedOpt, FedProx, FedNova, SCAFFOLD, FedDyn and
+Mime on logistic regression, the CIFAR ResNets and BERT-tiny, cross-silo
+FedAvg over INPROC and, on it, the fed-LLM plane (see ROADMAP.md for what
+is still to come).
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 
 Port of ``fedml_tpu/ml/aggregator/agg_operator.py``: ``agg_stacked`` (the
 vectorized Parrot path), ``mix_global`` and ``fold_buffer`` (the
-buffered-async fold), ``weighted_average``, and the host-driven
-``FedMLAggOperator`` (the cross-silo server's funnel) with its FedAvg
-arm.  Robust aggregation and the SCAFFOLD and Mime arms raise
-``NotImplementedError`` naming port item A9.
+buffered-async fold), ``weighted_average``, ``uniform_average``, and the
+host-driven ``FedMLAggOperator`` (the funnel of the SP simulation and the
+cross-silo server) with its sample-weighted arm and the SCAFFOLD and Mime
+pair arms.  Robust aggregation raises ``NotImplementedError`` naming port
+item A9.
 
 ``agg_stacked`` and ``fold_buffer`` take dicts of tensors: one ``[C, ...]``
 tensor per key (the Parrot engine passes one ``[C, D]`` buffer per dtype),
@@ -98,6 +99,33 @@ def weighted_average(grad_list: Sequence[Tuple[float, Any]]) -> Any:
                                         in zip(ws, leaves)), *trees)
 
 
+def uniform_average(trees: Sequence[Any], denom: Optional[float] = None
+                    ) -> Any:
+    """``Σ trees / denom`` leaf by leaf (``denom`` the number of trees by
+    default): SCAFFOLD's control variates, averaged uniformly over
+    ``client_num_in_total``.  Trees that stack into ``[C, D]`` buffers take
+    the weighted-reduce kernel with unit weights (``agg_trees``: their mean,
+    in float32), scaled by ``C / denom`` rounded to float32; others are
+    summed leaf by leaf in plain torch on the CPU, and raise on a card."""
+    k = len(trees)
+    denom = float(denom if denom is not None else k)
+    pairs = [(1.0, t) for t in trees]
+    why = _unstackable(pairs)
+    if not why:
+        device = tree_leaves(trees[0])[0].device
+        mean = agg_trees(trees, torch.ones(k, dtype=torch.float32,
+                                           device=device))
+        if k == denom:
+            return mean
+        scale = float(np.float32(k / denom))
+        return tree_map(lambda x: x * scale, mean)
+    if _on_card(pairs):
+        raise ValueError(f"trees on a card that do not stack into one "
+                         f"[C, D] buffer per dtype for the weighted-reduce "
+                         f"kernel: {why}")
+    return tree_map(lambda *leaves: sum(leaves) / denom, *trees)
+
+
 def _unstackable(grad_list: Sequence[Tuple[float, Any]]) -> str:
     """Why the client payloads cannot be stacked into ``[C, D]`` buffers,
     or ``""`` when they can: every payload a tree of one structure, with
@@ -170,8 +198,8 @@ def agg_trees(trees: Sequence[Any], weights: torch.Tensor) -> Any:
 
 class FedMLAggOperator:
     """The host-driven aggregation funnel, dispatched on
-    ``args.federated_optimizer``.  Ported: the FedAvg arm, the plain
-    sample-weighted average."""
+    ``args.federated_optimizer``: the sample-weighted average, and the
+    SCAFFOLD and Mime arms on ``(params, extra)`` pair payloads."""
 
     @staticmethod
     def _reduce(args: Any, grad_list: List[Tuple[float, Any]],
@@ -206,14 +234,29 @@ class FedMLAggOperator:
     def agg(args: Any, raw_grad_list: List[Tuple[float, Any]],
             center: Any = None) -> Any:
         """``center`` is the current global model, the clipping anchor of
-        the JAX package's robust operators (A9); the FedAvg arm ignores
-        it."""
+        the JAX package's robust operators (A9); the ported arms ignore it.
+
+        Payloads that are not pairs take one weighted reduction, whatever
+        the optimizer.  SCAFFOLD's pairs ``(n_k, (params, c_delta))``: the
+        params sample-weighted, the variates averaged uniformly over
+        ``client_num_in_total`` (``uniform_average``); Mime's ``(n_k,
+        (params, grads))``: both sample-weighted.  Returns the two averages
+        as a pair."""
         opt = getattr(args, "federated_optimizer", "FedAvg")
         is_pair = bool(raw_grad_list) and isinstance(raw_grad_list[0][1],
                                                      tuple)
-        if is_pair or opt in (FED_OPT_SCAFFOLD, FED_OPT_MIME):
-            raise NotImplementedError(
-                f"aggregation for {opt!r} (paired payloads: SCAFFOLD's "
-                f"control variates, Mime's gradients) is not ported yet "
-                f"(port item A9)")
+        if is_pair and opt == FED_OPT_SCAFFOLD:
+            n_total = float(getattr(args, "client_num_in_total",
+                                    len(raw_grad_list)))
+            params_avg = FedMLAggOperator._reduce(
+                args, [(n, pair[0]) for n, pair in raw_grad_list], center)
+            c_avg = uniform_average([pair[1] for _, pair in raw_grad_list],
+                                    denom=n_total)
+            return params_avg, c_avg
+        if is_pair and opt == FED_OPT_MIME:
+            params_avg = FedMLAggOperator._reduce(
+                args, [(n, pair[0]) for n, pair in raw_grad_list], center)
+            grads_avg = FedMLAggOperator._reduce(
+                args, [(n, pair[1]) for n, pair in raw_grad_list])
+            return params_avg, grads_avg
         return FedMLAggOperator._reduce(args, raw_grad_list, center)

@@ -201,6 +201,15 @@ class FlatVariables:
         """The buffer (BatchNorm statistics) columns, ``[P, D)``."""
         return slice(self.param_cols[dtype], self.flat[dtype].numel())
 
+    def param_views(self, cols: Dict[torch.dtype, torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Views of ``cols`` (per dtype, a tensor whose first
+        ``param_cols[dtype]`` elements are laid out as the parameter
+        columns: a ``[P]`` or ``[D]`` buffer, or a row of one) shaped as
+        the parameters, in the order of ``self.params``."""
+        return [cols[leaf.dtype][leaf.offset:leaf.offset + leaf.numel]
+                .view(leaf.shape) for leaf in self.layout if leaf.is_param]
+
     def snapshot(self) -> Dict[torch.dtype, torch.Tensor]:
         return {dt: f.clone() for dt, f in self.flat.items()}
 

@@ -2,10 +2,13 @@
 
 Port of ``fedml_tpu/ml/engine/optimizers.py``:
 
-* ``build_client_optimizer`` for the setting the north-star config uses:
-  plain SGD at a constant learning rate (``optax.sgd(lr)``: ``p ← p +
-  (−lr·g)``, in the parameter's dtype).  Momentum, weight decay, adam and
-  the lr schedules are not ported yet for it and raise (port item A9).
+* ``build_client_optimizer`` — the client chain of a local update
+  (``ClientOptimizer``): ``sgd`` (optax's ``trace`` with momentum, then
+  ``scale(−lr)``), ``adam``, ``adamw(lr, weight_decay)``, with
+  ``add_decayed_weights(wd)`` ahead of sgd and adam when ``weight_decay``
+  > 0, at the learning rate or schedule of ``make_lr``.  Plain SGD at a
+  constant rate (the north-star config's) keeps no state: ``p ← p +
+  (−lr·g)`` in the parameter's dtype.
 * ``make_lr`` — the learning rate or schedule: constant, cosine (optax's
   ``warmup_cosine_decay_schedule``) and linear (``linear_schedule``, with
   a warmup leg through ``join_schedules``, which rebases the step count at
@@ -36,28 +39,156 @@ import numpy as np
 import torch
 
 
-def build_client_optimizer(cfg: Any) -> Callable[[List[torch.Tensor],
-                                                  List[torch.Tensor]], None]:
-    """Returns ``step(params, grads)``, which updates ``params`` in place."""
+State = Dict[str, Any]
+
+
+class ClientOptimizer:
+    """optax's client chain on the parameter tensors of one local update,
+    updated in place: ``[add_decayed_weights(wd)] → sgd | adam``, or
+    ``adamw``, then the learning rate (``scale_by_learning_rate``).
+
+    ``init(params, device_count=False)`` → a fresh state (a local update
+    creates one per client); ``step(params, grads, state, rows)`` applies
+    one update and returns the new state, the old one left as it is.  The
+    state holds optax's step ``count`` — a host int, or with
+    ``device_count`` a 0-d int64 tensor on the parameters' device, so that
+    the gated local update keeps it on the device where a step is padding
+    — and the lists ``trace`` (sgd with momentum) or ``mu`` and ``nu``
+    (adam, adamw), one tensor per parameter.
+
+    A step's scalars come from ``rows`` (``step_rows(n, device)``): row
+    ``t`` holds ``−lr(t)`` and adam's bias corrections ``1 − b1^(t+1)`` and
+    ``1 − b2^(t+1)``, float32 values computed on the host as optax computes
+    them, read at the state's count by host index or on the device — the
+    same tensors either way, so the two bodies round alike.  Constants meet
+    float32 tensors rounded to float32, as JAX's weakly typed scalars do;
+    every operation is optax 0.2.6's, in its order (``trace``:
+    ``g + m·t``; ``scale_by_adam``: ``(1 − b1)·g + b1·mu``, ``(1 − b2)·g²
+    + b2·nu``, ``mu/bc1 / (sqrt(nu/bc2 + 0) + eps)``; ``adamw`` then ``+
+    wd·p``; ``× −lr``; ``p + u``).
+
+    ``plain``: sgd at a constant rate without momentum or weight decay —
+    stateless, ``p + (−lr·g)`` with the rate a Python float."""
+
+    def __init__(self, name: str, learning_rate: Union[float, "Schedule"],
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> None:
+        if name not in ("sgd", "adam", "adamw"):
+            raise ValueError(f"unknown client_optimizer {name!r}; known: "
+                             f"sgd, adam, adamw")
+        self.name = name
+        self.lr = learning_rate
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.plain = (name == "sgd" and not callable(learning_rate)
+                      and not self.momentum and not self.weight_decay)
+        self._rows: Dict[Tuple[int, str], torch.Tensor] = {}
+
+    def init(self, params: List[torch.Tensor],
+             device_count: bool = False) -> State:
+        if self.plain:
+            return {}
+        dev = params[0].device
+        state: State = {"count": torch.zeros((), dtype=torch.int64,
+                                             device=dev)
+                        if device_count else 0}
+        if self.name == "sgd":
+            if self.momentum:
+                state["trace"] = [torch.zeros_like(p) for p in params]
+        else:
+            state["mu"] = [torch.zeros_like(p) for p in params]
+            state["nu"] = [torch.zeros_like(p) for p in params]
+        return state
+
+    def step_rows(self, n_steps: int, device: torch.device) -> torch.Tensor:
+        """The ``[n_steps, 3]`` float32 table of the first ``n_steps``
+        steps' scalars on ``device``, built once per length and device: the
+        gated body reads it at the count on the device, so a CUDA graph
+        captures it built."""
+        key = (int(n_steps), str(device))
+        rows = self._rows.get(key)
+        if rows is None:
+            vals = np.zeros((max(int(n_steps), 1), 3), np.float32)
+            for t in range(vals.shape[0]):
+                lr = self.lr(t) if callable(self.lr) else self.lr
+                vals[t] = (_f32(-lr), _bias_correction(self.b1, t + 1),
+                           _bias_correction(self.b2, t + 1))
+            rows = self._rows[key] = torch.from_numpy(vals).to(device)
+        return rows
+
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             state: State, rows: Optional[torch.Tensor] = None) -> State:
+        with torch.no_grad():
+            if self.plain:
+                torch._foreach_add_(params, torch._foreach_mul(
+                    list(grads), -float(self.lr)))
+                return state
+            count = state["count"]
+            if isinstance(count, torch.Tensor):
+                row = rows.index_select(0, count.reshape(1))[0]
+            else:
+                row = rows[count]
+            neg_lr, bc1, bc2 = row[0], row[1], row[2]
+            new: State = {"count": count + 1}
+            g = list(grads)
+            if self.weight_decay and self.name != "adamw":
+                g = torch._foreach_add(g, torch._foreach_mul(
+                    params, _f32(self.weight_decay)))
+            if self.name == "sgd":
+                if self.momentum:
+                    g = torch._foreach_add(g, torch._foreach_mul(
+                        state["trace"], _f32(self.momentum)))
+                    new["trace"] = g
+                u = g
+            else:
+                mu = torch._foreach_add(
+                    torch._foreach_mul(g, _f32(1 - self.b1)),
+                    torch._foreach_mul(state["mu"], _f32(self.b1)))
+                nu = torch._foreach_add(
+                    torch._foreach_mul(torch._foreach_mul(g, g),
+                                       _f32(1 - self.b2)),
+                    torch._foreach_mul(state["nu"], _f32(self.b2)))
+                den = torch._foreach_add(torch._foreach_sqrt(
+                    torch._foreach_add(torch._foreach_div(nu, bc2), 0.0)),
+                    _f32(self.eps))
+                u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+                if self.name == "adamw":
+                    u = torch._foreach_add(u, torch._foreach_mul(
+                        params, _f32(self.weight_decay)))
+                new["mu"], new["nu"] = mu, nu
+            torch._foreach_add_(params, torch._foreach_mul(u, neg_lr))
+        return new
+
+    @staticmethod
+    def keep(ok: torch.Tensor, new: State, old: State) -> State:
+        """``new`` where the device flag ``ok`` is set, else ``old``,
+        element by element (the gated body's padded steps), the count
+        included."""
+        out: State = {}
+        for k, v in new.items():
+            if isinstance(v, (list, tuple)):
+                out[k] = [torch.where(ok, a, b) for a, b in zip(v, old[k])]
+            else:
+                out[k] = torch.where(ok, v, old[k])
+        return out
+
+
+def build_client_optimizer(cfg: Any) -> ClientOptimizer:
+    """The client chain of ``cfg`` (``fedml_tpu/ml/engine/optimizers.py``'s
+    ``build_client_optimizer``): ``client_optimizer`` sgd (default; with
+    ``momentum`` > 0 optax's trace), adam or adamw, ``weight_decay``
+    chained ahead of sgd and adam (adamw's own decay otherwise), at
+    ``make_lr(cfg)``."""
     name = str(getattr(cfg, "client_optimizer", "sgd")).lower()
-    kind = str(getattr(cfg, "lr_schedule", "constant") or "constant").lower()
+    if name not in ("adam", "adamw"):
+        name = "sgd"
     momentum = float(getattr(cfg, "momentum", 0.0) or 0.0)
     wd = float(getattr(cfg, "weight_decay", 0.0) or 0.0)
-    if name != "sgd" or kind != "constant" or momentum or wd:
-        raise NotImplementedError(
-            f"client optimizer {name!r} (lr_schedule {kind!r}, momentum "
-            f"{momentum}, weight_decay {wd}) is not ported yet; the port "
-            f"runs plain sgd at a constant learning rate")
-    lr = float(getattr(cfg, "learning_rate", 0.03))
-
-    def step(params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
-        with torch.no_grad():
-            torch._foreach_add_(params, torch._foreach_mul(grads, -lr))
-
-    return step
-
-
-State = Dict[str, Any]
+    return ClientOptimizer(name, make_lr(cfg),
+                           momentum=momentum if name == "sgd" else 0.0,
+                           weight_decay=wd)
 
 
 class ServerOptimizer(NamedTuple):

@@ -4,7 +4,12 @@ Port of ``fedml_tpu/ml/trainer/default_trainer.py``: ``batches_for``,
 ``DefaultClientTrainer`` and ``DefaultServerAggregator`` on the port's
 ``build_local_update`` and ``build_eval_step``.  Model parameters are trees
 of tensors in the JAX package's layout (``utils/weights.tree_from_module``)
-on the trainer's device.
+on the trainer's device.  The client trainer carries the federated
+optimizer's per-client state in (``algo_state``: SCAFFOLD's ``c_global``
+and ``c_local``, FedDyn's ``feddyn_lambda``, Mime's ``server_momentum``)
+and the arm's output out (``algo_out``) of the local update, as trees
+shaped like the JAX ``params`` (FedNova's ``tau`` a 0-d tensor), as the
+JAX trainer does.
 
 The JAX package's bundle is stateless: its trainers pass variables in and
 out of jitted functions.  The port's bundle trains and evaluates its module
@@ -30,10 +35,15 @@ import torch
 
 from ...core.alg_frame.client_trainer import ClientTrainer
 from ...core.alg_frame.server_aggregator import ServerAggregator
-from ...utils.weights import load_tree, tree_from_module
+from ...utils.weights import (
+    flat_from_params_tree,
+    load_tree,
+    params_tree_from_flat,
+    tree_from_module,
+)
 from ..engine.device import get_device
 from ..engine.local_update import build_eval_step, build_local_update, make_batches
-from ..engine.model_bundle import ModelBundle
+from ..engine.model_bundle import FlatVariables, ModelBundle
 
 
 def batches_for(data: Tuple[np.ndarray, np.ndarray], batch_size: int,
@@ -63,6 +73,22 @@ def _resolve(device: Any, args: Any) -> torch.device:
     return torch.device(device) if device is not None else get_device(args)
 
 
+def _flat_state(algo_state: Dict[str, Any], variables: FlatVariables
+                ) -> Dict[str, Any]:
+    """Per-client state trees (shaped like the JAX ``params``) as the local
+    update takes them: per dtype group over the parameter columns."""
+    return {k: flat_from_params_tree(t, variables)
+            for k, t in algo_state.items()}
+
+
+def _tree_out(algo_out: Dict[str, Any], variables: FlatVariables
+              ) -> Dict[str, Any]:
+    """The local update's ``algo_out`` as trees shaped like the JAX
+    ``params`` (scalars, such as FedNova's ``tau``, as they are)."""
+    return {k: params_tree_from_flat(v, variables) if isinstance(v, dict)
+            else v for k, v in algo_out.items()}
+
+
 def _metrics(out: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     n = max(float(out["n"]), 1.0)
     return {"test_loss": float(out["loss_sum"]) / n,
@@ -82,6 +108,10 @@ class DefaultClientTrainer(ClientTrainer):
         self.batch_size = int(getattr(args, "batch_size", 32))
         #: the padded batch-grid length, fixed by the plane for every silo
         self.num_batches: Optional[int] = None
+        #: the federated optimizer's state for the next local update, and
+        #: the arm's output of the last one (trees shaped like ``params``)
+        self.algo_state: Dict[str, Any] = {}
+        self.algo_out: Dict[str, Any] = {}
         self.last_metrics: Dict[str, Any] = {}
 
     def set_num_batches(self, nb: Optional[int]) -> None:
@@ -103,11 +133,14 @@ class DefaultClientTrainer(ClientTrainer):
         with self.bundle.lock:
             variables = self.bundle.bind(self.device)
             load_tree(self.params, self.bundle.module)
-            out = self.local_update(variables, batches, valid,
-                                    rng=self._dropout_rng())
+            out = self.local_update(
+                variables, batches, valid, rng=self._dropout_rng(),
+                algo_state=_flat_state(self.algo_state, variables))
             new_params = tree_from_module(self.bundle.module)
+            algo_out = _tree_out(out.pop("algo_out"), variables)
         self.last_metrics = {k: float(v) for k, v in out.items()}
         self.params = new_params
+        self.algo_out = algo_out
         return self.last_metrics
 
 

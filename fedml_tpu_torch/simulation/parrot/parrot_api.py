@@ -1,9 +1,11 @@
 """Parrot — federated simulation on one device.
 
-Port of ``fedml_tpu/simulation/parrot/parrot_api.py``: ``bucket_plan``, the
-FedAvg and FedOpt arms of ``build_aggregate``, ``ParrotAPI``'s per-round
-path — the uniform round and the size-bucketed round — and its fused
-multi-round path (``run_rounds_fused``, ``fused_rounds: true``).
+Port of ``fedml_tpu/simulation/parrot/parrot_api.py``: ``bucket_plan``,
+``build_aggregate`` with the arms of every federated optimizer the JAX
+engine shares (FedAvg, FedOpt, FedProx, FedNova, SCAFFOLD, FedDyn, Mime),
+``ParrotAPI``'s per-round path — the uniform round and the size-bucketed
+round — and its fused multi-round path (``run_rounds_fused``,
+``fused_rounds: true``).
 
 A round of the per-round path:
 
@@ -20,10 +22,22 @@ A round of the per-round path:
   reduces each with the weighted-reduce kernel, one launch
   per dtype; FedOpt runs the server step on the parameter columns with the
   fused-epilogue kernel and reduces the statistics columns with the
-  weighted-reduce kernel, two launches per dtype (``build_aggregate``).
+  weighted-reduce kernel, two launches per dtype; the other arms reduce
+  their per-client outputs with the weighted-reduce kernel too (one more
+  launch per dtype for SCAFFOLD, Mime and FedNova, ``build_aggregate``).
   The new global model is written into the global buffers, and the server
   state into its own tensors; the fused epilogue reads its step's row from
   a device table (``ops/epilogue.step_rows``).
+
+SCAFFOLD's and FedDyn's per-client state is a ``[N, P]`` table per dtype
+group over the parameter columns (``c_locals``, ``lambdas``: 342 MB each
+for ResNet-56's 855,776 parameters at 100 clients), beside the ``[P]``
+vectors ``c_global``, ``h`` and Mime's ``momentum``, all fixed device
+buffers.  A round reads its clients' rows — by host int on the per-round
+path, with ``index_select`` at the device-drawn ids in the fused rounds —
+and writes the new rows back in place (``index_copy_``).  Mime's second
+pass and FedNova's τ run inside the round, so the fused rounds capture
+them too.
 
 The fused rounds (``run_rounds_fused``) run the same round with nothing
 read on the host, in chunks of ``FUSED_CHUNK_ROUNDS`` rounds, the host
@@ -41,7 +55,7 @@ the JAX package takes a key per call; ``train()`` passes a fresh seed per
 chunk.
 
 With ``checkpoint_dir`` both paths save ``{round_idx, global_vars,
-server_state}`` (``utils/checkpoint.RoundCheckpointer``, the JAX package's
+server_state}`` (the server state under the JAX package's names) (``utils/checkpoint.RoundCheckpointer``, the JAX package's
 file format) — the per-round path every ``checkpoint_frequency`` rounds
 (10) and at the last, the fused rounds after each eval — and resume from
 the newest save, written into the live buffers in place.
@@ -72,9 +86,8 @@ bundle's integer input dtype, the gathers yield ``[nb, B, T]`` grids with
 a ``[nb, B]`` sequence mask, and clients partition by their first label
 token when no row map was stashed.
 
-Not ported yet: the SCAFFOLD/FedDyn/FedNova/Mime/FedProx arms, robust
-aggregation, the AOT cache and compile-ahead, mesh/remesh/resize and the
-flight recorder.  The fused rounds run every option the per-round path
+Not ported yet: robust aggregation (A9), the AOT cache and compile-ahead,
+mesh/remesh/resize and the flight recorder.  The fused rounds run every option the per-round path
 runs: the unfused adam's and yogi's step counts are device tensors there,
 their bias corrections read from a device table.
 
@@ -92,10 +105,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...constants import FED_OPT_FEDAVG, FED_OPT_FEDOPT
+from ...constants import (
+    FED_OPT_FEDAVG,
+    FED_OPT_FEDDYN,
+    FED_OPT_FEDNOVA,
+    FED_OPT_FEDOPT,
+    FED_OPT_MIME,
+    FED_OPT_SCAFFOLD,
+)
 from ...ml.aggregator.agg_operator import agg_stacked
 from ...ml.engine.device import get_device
 from ...ml.engine.local_update import (
+    ALGO_STATE_KEYS,
     build_eval_step,
     build_local_update,
     make_batches,
@@ -103,6 +124,7 @@ from ...ml.engine.local_update import (
 from ...ml.engine.model_bundle import FlatVariables
 from ...ml.engine.optimizers import (
     ServerOptimizer,
+    _f32,
     apply_updates,
     build_server_optimizer,
 )
@@ -125,6 +147,19 @@ from ...utils.weights import from_flax_variables, to_flax_variables
 BUCKET_SEED_OFFSET = 17
 SAMPLE_SEED_OFFSET = 23
 DROPOUT_SEED_OFFSET = 31
+
+#: per federated optimizer, the server state over each dtype group's
+#: parameter columns (the JAX package's names): ``[P]`` tensors, and
+#: ``[N, P]`` tables with a row per client
+SERVER_VECTORS = {FED_OPT_SCAFFOLD: ("c_global",), FED_OPT_FEDDYN: ("h",),
+                  FED_OPT_MIME: ("momentum",)}
+CLIENT_TABLES = {FED_OPT_SCAFFOLD: ("c_locals",),
+                 FED_OPT_FEDDYN: ("lambdas",)}
+#: per federated optimizer, the local update's outputs stacked a round
+#: (``[C, P]`` per dtype group; FedNova's ``tau`` a ``[C]`` vector)
+ALGO_OUTPUTS = {FED_OPT_SCAFFOLD: ("c_local", "c_delta"),
+                FED_OPT_FEDDYN: ("feddyn_lambda",),
+                FED_OPT_FEDNOVA: ("nova_d",), FED_OPT_MIME: ("full_grad",)}
 
 
 def bucket_plan(sizes: np.ndarray, k: int, bs: int, n_buckets: int,
@@ -183,10 +218,30 @@ def bucket_plan(sizes: np.ndarray, k: int, bs: int, n_buckets: int,
 def build_aggregate(args: Any, algo: str, n_total: int,
                     flat_vars: FlatVariables,
                     server_tx: Optional[ServerOptimizer] = None):
-    """Post-training logic of a round: the weighted aggregation, FedOpt's
-    server step and the round metrics, on stacked per-client outputs.  The
-    FedAvg and FedOpt arms are ported; robust aggregation and the
-    SCAFFOLD/FedDyn/FedNova/Mime arms raise.
+    """Post-training logic of a round: the weighted aggregation, the server
+    step of the federated optimizer and the round metrics, on stacked
+    per-client outputs.  Robust aggregation raises (port item A9).
+
+    Every weighted mean over the round's clients is one weighted-reduce
+    launch per dtype group (kernel 1 on a card): of the clients' models
+    (each arm; FedNova's over the BatchNorm columns alone, as its parameters
+    come from ``nova_d``), and of FedNova's ``nova_d``, Mime's
+    ``full_grad`` and SCAFFOLD's ``c_delta`` (unit weights: the mean, scaled
+    by ``C/N`` rounded to float32, is the JAX package's sum over ``N``).
+    The rest is elementwise arithmetic on the parameter columns in plain
+    PyTorch, in the JAX package's order (``build_aggregate`` there), its
+    Python-float constants rounded to float32:
+
+    * FedAvg, FedProx: the weighted mean;
+    * SCAFFOLD: the sampled clients' rows of ``c_locals`` replaced by their
+      ``c_local``; ``c_global += Σ c_delta / N``;
+    * FedDyn: the rows of ``lambdas`` replaced; ``h ← h − α·(C/N)·(avg −
+      w_g)``; parameters ``avg − h/α``;
+    * FedNova: ``τ_eff = Σ p_k τ_k`` with ``p`` the normalised weights;
+      parameters ``w_g − τ_eff·lr·d̄``, ``d̄`` the weighted mean of
+      ``nova_d``;
+    * Mime: ``momentum ← β·m + (1 − β)·ḡ``, ``ḡ`` the weighted mean of
+      ``full_grad``; the model the weighted mean.
 
     FedOpt has two arms, as in the JAX package:
 
@@ -204,19 +259,23 @@ def build_aggregate(args: Any, algo: str, n_total: int,
     In both, the BatchNorm statistics take the plain weighted mean.
 
     ``aggregate`` writes the new global model into ``global_vars``' buffers
-    and the server state into its tensors (the unfused arm copies its
-    update's state back), so a round captured into a CUDA graph finds
-    them where it left them; ``steps`` is the step table
-    (``ops/epilogue.step_rows``) of the fused channel, or of the unfused
-    adam's and yogi's bias corrections (its last two columns)."""
-    if algo not in (FED_OPT_FEDAVG, FED_OPT_FEDOPT):
+    and the server state into its tensors — the per-client tables row by
+    row with ``index_copy_`` at ``client_ids`` (the round's ids on the
+    device) — so a round captured into a CUDA graph finds them where it
+    left them; ``steps`` is the step table (``ops/epilogue.step_rows``) of
+    the fused channel, or of the unfused adam's and yogi's bias corrections
+    (its last two columns)."""
+    if algo not in ALGO_STATE_KEYS:
         raise NotImplementedError(
             f"Parrot aggregation for {algo!r} is not ported yet (port item "
-            f"A9); the port runs {FED_OPT_FEDAVG} and {FED_OPT_FEDOPT}")
+            f"A9); the port runs {', '.join(ALGO_STATE_KEYS)}")
     if getattr(args, "robust_agg", None):
         raise NotImplementedError("robust_agg is not ported yet (port item "
                                   "A9)")
     fused_opt = spec_from_args(args) if algo == FED_OPT_FEDOPT else None
+    alpha = float(getattr(args, "feddyn_alpha", 0.01) or 0.01)
+    beta = float(getattr(args, "server_momentum", 0.9) or 0.9)
+    lr = float(getattr(args, "learning_rate", 0.03))
 
     def server_step(global_vars, opt_state, new_vars, weights, steps):
         if fused_opt is None:
@@ -244,11 +303,60 @@ def build_aggregate(args: Any, algo: str, n_total: int,
             if stats.start < stats.stop:
                 weighted_reduce(x[:, stats], weights, out=g[stats])
 
+    def algo_step(global_vars, state, new_vars, weights, client_ids,
+                  algo_out):
+        """The server step of SCAFFOLD, FedDyn, FedNova and Mime, in
+        place."""
+        for name in CLIENT_TABLES.get(algo, ()):
+            out = "c_local" if algo == FED_OPT_SCAFFOLD else "feddyn_lambda"
+            for dt, table in state[name].items():
+                table.index_copy_(0, client_ids, algo_out[out][dt])
+        if algo == FED_OPT_FEDNOVA:
+            w = weights / torch.clamp(weights.sum(), min=1e-12)
+            step = (w * algo_out["tau"]).sum() * lr
+        for dt, x in new_vars.items():
+            g = global_vars[dt]
+            if dt not in flat_vars.param_dtypes():
+                weighted_reduce(x, weights, out=g)
+                continue
+            cols, stats = flat_vars.params_range(dt), flat_vars.stats_range(dt)
+            if algo == FED_OPT_FEDNOVA:
+                d_avg = weighted_reduce(algo_out["nova_d"][dt], weights)
+                g[cols] = g[cols] - step * d_avg
+                if stats.start < stats.stop:
+                    weighted_reduce(x[:, stats], weights, out=g[stats])
+            elif algo == FED_OPT_FEDDYN:
+                avg = weighted_reduce(x, weights)
+                h = state["h"][dt]
+                h.copy_(h - _f32(alpha * (x.shape[0] / float(n_total)))
+                        * (avg[cols] - g[cols]))
+                g.copy_(avg)
+                # a tensor divisor divides as JAX does (PyTorch's CUDA
+                # division by a Python number multiplies by its reciprocal);
+                # filled on the device, as a captured round copies nothing
+                # from the host
+                g[cols] = avg[cols] - h / torch.full(
+                    (), alpha, dtype=h.dtype, device=h.device)
+            else:
+                weighted_reduce(x, weights, out=g)
+                if algo == FED_OPT_SCAFFOLD:
+                    mean = weighted_reduce(algo_out["c_delta"][dt],
+                                           torch.ones_like(weights))
+                    c = state["c_global"][dt]
+                    c.copy_(c + mean * _f32(x.shape[0] / float(n_total)))
+                elif algo == FED_OPT_MIME:
+                    gbar = weighted_reduce(algo_out["full_grad"][dt],
+                                           weights)
+                    m = state["momentum"][dt]
+                    m.copy_(_f32(beta) * m + _f32(1.0 - beta) * gbar)
+
     def aggregate(global_vars: Dict[torch.dtype, torch.Tensor],
                   server_state: Dict[str, Any],
                   new_vars: Dict[torch.dtype, torch.Tensor],
                   metrics: Dict[str, torch.Tensor], weights: torch.Tensor,
-                  steps: Optional[StepRows] = None
+                  steps: Optional[StepRows] = None,
+                  client_ids: Optional[torch.Tensor] = None,
+                  algo_out: Optional[Dict[str, Any]] = None
                   ) -> Tuple[Dict[torch.dtype, torch.Tensor], Dict[str, Any],
                              Dict[str, torch.Tensor]]:
         new_state = dict(server_state)
@@ -256,6 +364,9 @@ def build_aggregate(args: Any, algo: str, n_total: int,
             new_state["opt_state"] = dict(server_state["opt_state"])
             server_step(global_vars, new_state["opt_state"], new_vars,
                         weights, steps)
+        elif algo in ALGO_OUTPUTS:
+            algo_step(global_vars, new_state, new_vars, weights, client_ids,
+                      algo_out)
         else:
             agg_stacked(new_vars, weights, out=global_vars)
         wsum = torch.clamp(weights.sum(), min=1e-12)
@@ -367,6 +478,19 @@ class ParrotAPI:
                 opt_state[dt] = (init_opt_state(p, spec) if spec is not None
                                  else self.server_tx.init(p))
             self.server_state["opt_state"] = opt_state
+        # SCAFFOLD's, FedDyn's and Mime's state over each dtype group's
+        # parameter columns, fixed device buffers updated in place
+        cols = {dt: self.vars.param_cols[dt]
+                for dt in self.vars.param_dtypes()}
+        for name in SERVER_VECTORS.get(self.algo, ()):
+            self.server_state[name] = {
+                dt: torch.zeros(p, dtype=dt, device=self.device)
+                for dt, p in cols.items()}
+        for name in CLIENT_TABLES.get(self.algo, ()):
+            self.server_state[name] = {
+                dt: torch.zeros((self.n_total, p), dtype=dt,
+                                device=self.device)
+                for dt, p in cols.items()}
         self.aggregate = build_aggregate(args, self.algo, self.n_total,
                                          self.vars, self.server_tx)
 
@@ -377,6 +501,15 @@ class ParrotAPI:
         self.stacked = {dt: torch.empty((n_round, f.numel()), dtype=dt,
                                         device=self.device)
                         for dt, f in self.global_vars.items()}
+        #: per-round outputs of the arm's local update, row c client c's
+        self.algo_stacked: Dict[str, Any] = {
+            name: {dt: torch.empty((n_round, p), dtype=dt,
+                                   device=self.device)
+                   for dt, p in cols.items()}
+            for name in ALGO_OUTPUTS.get(self.algo, ())}
+        if self.algo == FED_OPT_FEDNOVA:
+            self.algo_stacked["tau"] = torch.empty(
+                n_round, dtype=torch.float32, device=self.device)
         #: eval rounds, as the JAX package records them
         self.metrics_history: List[Dict[str, Any]] = []
         #: every round: train_loss, train_seconds, samples_trained
@@ -514,32 +647,72 @@ class ParrotAPI:
         then aggregate into the new global model.  ``gated``: the gated
         local update on the grids' device flags (the fused rounds), else the
         host-skip one on flags read on the host."""
+        ids = torch.cat([ids for _, ids in parts])
+        # the per-client tables' rows of the round's clients: by host int
+        # on the per-round path (views), gathered at the device-drawn ids
+        # in the fused rounds
+        tables = {name: ({dt: t.index_select(0, ids) for dt, t in
+                          self.server_state[name].items()} if gated
+                         else self.server_state[name])
+                  for name in CLIENT_TABLES.get(self.algo, ())}
         per_client = []
         c = 0
-        for batches, ids in parts:
-            for i in range(ids.shape[0]):
+        for batches, part_ids in parts:
+            for i in range(part_ids.shape[0]):
                 self.vars.load(self.global_vars)
                 grid = {k: batches[k][i] for k in ("x", "y", "mask")}
+                state = self._algo_state(tables, c if gated
+                                         else int(part_ids[i]))
                 if gated:
                     m = self.gated_update(self.vars, grid,
-                                          batches["valid"][i], self._dgen)
+                                          batches["valid"][i], self._dgen,
+                                          algo_state=state)
                 else:
                     m = self.local_update(self.vars, grid,
                                           batches["valid"][i].tolist(),
-                                          rng=self.dropout_rng)
+                                          rng=self.dropout_rng,
+                                          algo_state=state)
                 for dt, f in self.vars.flat.items():
                     self.stacked[dt][c].copy_(f)
+                for name, out in m["algo_out"].items():
+                    if name == "tau":
+                        self.algo_stacked[name][c].copy_(out)
+                        continue
+                    for dt, row in out.items():
+                        self.algo_stacked[name][dt][c].copy_(row)
                 per_client.append(m)
                 c += 1
-        ids = torch.cat([ids for _, ids in parts]).to(self.device)
+        ids = ids.to(self.device)
         metrics = {k: torch.stack([m[k] for m in per_client])
                    for k in ("train_loss", "train_acc", "n_samples")}
+        algo_out = {name: (out[:c] if name == "tau"
+                           else {dt: t[:c] for dt, t in out.items()})
+                    for name, out in self.algo_stacked.items()}
         self.global_vars, self.server_state, rm = self.aggregate(
             self.global_vars, self.server_state,
             {dt: s[:c] for dt, s in self.stacked.items()}, metrics,
-            self.n_samples[ids], steps=self._steps)
+            self.n_samples[ids], steps=self._steps, client_ids=ids,
+            algo_out=algo_out)
         rm["samples_trained"] = metrics["n_samples"].sum()
         return rm
+
+    def _algo_state(self, tables: Dict[str, Any], row: int
+                    ) -> Dict[str, Any]:
+        """Client ``row``'s state of the arm (``per_client_algo_state`` of
+        the JAX package): ``tables`` holds the client tables, or their rows
+        of the round's clients (then ``row`` is the client's place in the
+        round, else its id)."""
+        st = self.server_state
+        if self.algo == FED_OPT_SCAFFOLD:
+            return {"c_global": st["c_global"],
+                    "c_local": {dt: t[row] for dt, t in
+                                tables["c_locals"].items()}}
+        if self.algo == FED_OPT_FEDDYN:
+            return {"feddyn_lambda": {dt: t[row] for dt, t in
+                                      tables["lambdas"].items()}}
+        if self.algo == FED_OPT_MIME:
+            return {"server_momentum": st["momentum"]}
+        return {}
 
     def _ready_steps(self, more: int, on_device: bool) -> None:
         """For a server step that reads a step table (FedOpt's fused
@@ -598,8 +771,10 @@ class ParrotAPI:
     def _checkpoint_state(self, round_idx: int) -> Dict[str, Any]:
         """The JAX package's checkpoint layout: ``round_idx``, the global
         model as a JAX variables tree (``global_flax_variables``) and the
-        server state, per dtype group name: its tensors copied to the host,
-        its step counts as int64 scalars."""
+        server state under the JAX package's names (``opt_state``;
+        ``c_global`` and ``c_locals``, ``h`` and ``lambdas``, ``momentum``),
+        per dtype group name: its tensors copied to the host, its step
+        counts as int64 scalars."""
         opt = self.server_state.get("opt_state")
         server: Dict[str, Any] = {}
         if opt is not None:
@@ -607,6 +782,9 @@ class ParrotAPI:
                 _dtype_name(dt): None if st is None else {
                     k: _host_leaf(v) for k, v in st.items()}
                 for dt, st in opt.items()}
+        for name in self._algo_state_names():
+            server[name] = {_dtype_name(dt): _host_leaf(t)
+                            for dt, t in self.server_state[name].items()}
         return {"round_idx": int(round_idx),
                 "global_vars": self.global_flax_variables(),
                 "server_state": server}
@@ -620,7 +798,23 @@ class ParrotAPI:
         from_flax_variables(state["global_vars"], self.bundle.module)
         for dt, f in self.global_vars.items():
             f.copy_(self.vars.flat[dt])
-        saved = (state.get("server_state") or {}).get("opt_state")
+        saved_state = state.get("server_state") or {}
+        for name in self._algo_state_names():
+            src = saved_state.get(name)
+            dst = self.server_state[name]
+            if src is None or set(src) != {_dtype_name(dt) for dt in dst}:
+                raise ValueError(f"checkpoint: no {name} for the dtype "
+                                 f"groups {sorted(map(_dtype_name, dst))}")
+            for dt, t in dst.items():
+                leaf = src[_dtype_name(dt)]
+                leaf = leaf if isinstance(leaf, torch.Tensor) \
+                    else torch.from_numpy(np.array(leaf))
+                if tuple(leaf.shape) != tuple(t.shape):
+                    raise ValueError(f"checkpoint: {name} of shape "
+                                     f"{tuple(leaf.shape)}, not "
+                                     f"{tuple(t.shape)}")
+                t.copy_(leaf)
+        saved = saved_state.get("opt_state")
         opt = self.server_state.get("opt_state")
         if (saved is None) != (opt is None):
             raise ValueError("checkpoint: the saved server state does not "
@@ -648,6 +842,10 @@ class ParrotAPI:
                     st[k] = int(np.asarray(src[k]))
                 if k == self._count_key:
                     self._t_host = int(np.asarray(src[k]))
+
+    def _algo_state_names(self) -> Tuple[str, ...]:
+        return (SERVER_VECTORS.get(self.algo, ())
+                + CLIENT_TABLES.get(self.algo, ()))
 
     def _train_rounds(self) -> Dict[str, Any]:
         comm_rounds = int(self.args.comm_round)
@@ -710,6 +908,10 @@ class ParrotAPI:
                 b[f"{k}_dev"] = b[k].to(dev)
         #: the round's train_loss, train_acc, samples and samples_trained
         self._rm = torch.zeros(4, dtype=torch.float32, device=dev)
+        #: the ids of the last fused round's clients, in training order
+        self.round_ids = torch.zeros(
+            sum(b["k"] for b in self.buckets) if self.buckets else self.k,
+            dtype=torch.int64, device=dev)
 
     def _reseed(self, rng: Any) -> None:
         """Reseed the fused rounds' generators from ``rng``: an int seed, a
@@ -764,6 +966,7 @@ class ParrotAPI:
                     batches = self._gather_batches(data, rows, b["idx_dev"],
                                                    b["nb"])
                 parts.append((batches, b["gids_dev"][rows]))
+        self.round_ids.copy_(torch.cat([ids for _, ids in parts]))
         rm = self._train_clients(parts, gated=True)
         self._rm.copy_(torch.stack([rm["train_loss"], rm["train_acc"],
                                     rm["samples"], rm["samples_trained"]]))

@@ -219,6 +219,49 @@ def flax_params_from_flat(flat: Dict[torch.dtype, torch.Tensor],
         for leaf, path, to_flax, _ in _param_leaves(flat_vars))
 
 
+def flat_from_params_tree(tree: Dict[str, Any], flat_vars: FlatVariables
+                          ) -> Dict[torch.dtype, torch.Tensor]:
+    """A tree of tensors shaped like the JAX ``params`` (the flax names and
+    layouts, ``tree_from_module(...)["params"]``) as one ``[P]`` tensor per
+    dtype group over its parameter columns, in the group's dtype on the
+    module's device: the per-client state of the local update's arms
+    (``ml/engine/local_update.py``)."""
+    device = next(iter(flat_vars.flat.values())).device
+    out = {dt: torch.zeros(flat_vars.param_cols[dt], dtype=dt,
+                           device=device)
+           for dt in flat_vars.param_dtypes()}
+    with torch.no_grad():
+        for leaf, path, _, from_flax in _param_leaves(flat_vars):
+            a = _get(tree, path)
+            if from_flax is not None:
+                a = a.permute(from_flax)
+            if tuple(a.shape) != tuple(leaf.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)} "
+                                 f"does not fit {tuple(leaf.shape)}")
+            out[leaf.dtype][leaf.offset:leaf.offset + leaf.numel].copy_(
+                a.reshape(-1))
+    return out
+
+
+def params_tree_from_flat(flat: Dict[torch.dtype, torch.Tensor],
+                          flat_vars: FlatVariables) -> Dict[str, Any]:
+    """The inverse: a tree shaped like the JAX ``params`` whose leaves are
+    fresh contiguous tensors in the flax layouts, in ``flat``'s dtype and
+    device."""
+    out: Dict[str, Any] = {}
+    with torch.no_grad():
+        for leaf, path, to_flax, _ in _param_leaves(flat_vars):
+            t = flat[leaf.dtype][leaf.offset:leaf.offset + leaf.numel].view(
+                leaf.shape)
+            if to_flax is not None:
+                t = t.permute(to_flax)
+            node = out
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = t.clone(memory_format=torch.contiguous_format)
+    return out
+
+
 def opt_state_from_jax(np_state: Any, flat_vars: FlatVariables,
                        device: Any = "cpu") -> Dict[torch.dtype, Any]:
     """The JAX package's FedOpt server state (numpy leaves) as the port's,

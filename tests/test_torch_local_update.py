@@ -159,12 +159,21 @@ def test_fedopt_trains_as_fedavg():
 
 
 def test_unported_algorithms_raise():
+    """Mime's reference-parity audit mode and the SP-only algorithms are
+    still to come; each arm of the shared engine builds."""
     bundle, _ = _port_setup(_np_vars())
-    for algo in ("FedProx", "SCAFFOLD", "FedNova"):
+    for algo, extra in (("Mime", dict(mime_ref_compat=True)),
+                        ("FedGKT", {}), ("HierarchicalFL", {})):
         cfg = _cfg(Config)
         cfg.federated_optimizer = algo
+        for k, v in extra.items():
+            setattr(cfg, k, v)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             lu.build_local_update(bundle, cfg)
+    for algo in ("FedProx", "SCAFFOLD", "FedNova", "FedDyn", "Mime"):
+        cfg = _cfg(Config)
+        cfg.federated_optimizer = algo
+        assert callable(lu.build_local_update(bundle, cfg))
 
 
 # ----------------------------------------------------- language-model client

@@ -270,9 +270,9 @@ def test_two_fedopt_rounds_match_jax(arm, tmp_path):
         assert rel <= STATE_RTOL[arm], (k, rel)
 
 
-@pytest.mark.parametrize("bad", [dict(federated_optimizer="FedProx"),
+@pytest.mark.parametrize("bad", [dict(robust_agg="trimmed_mean:0.1"),
                                  dict(robust_agg="median"),
-                                 dict(federated_optimizer="FedNova")])
+                                 dict(robust_agg="krum:1")])
 def test_unported_options_raise(bad, tmp_path):
     args = _args(Config, tmp_path, **bad)
     with pytest.raises(NotImplementedError):
@@ -308,7 +308,9 @@ def test_the_card_is_never_replaced_by_the_cpu(tmp_path):
                                                 device_type="tpu"))
 
 
-@pytest.mark.parametrize("kw", [dict(backend="sp"), dict(backend="mesh"),
+@pytest.mark.parametrize("kw", [dict(backend="sp",
+                                     federated_optimizer="VerticalFL"),
+                                dict(backend="mesh"),
                                 dict(training_type="cross_silo")])
 def test_runner_names_what_is_not_ported(kw, tmp_path):
     import fedml_tpu_torch
